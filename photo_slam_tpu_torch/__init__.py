@@ -1,14 +1,16 @@
 """photo_slam_tpu_torch: the PyTorch/CUDA port of photo_slam_tpu.
 
 The package mirrors photo_slam_tpu's layout and function names (ops/,
-models/, utils/, io/, apps/) so each function's JAX counterpart is found
+models/, mapper/, utils/, io/, apps/) so each function's JAX counterpart is found
 under the same path. It imports torch and numpy, never jax: it runs on
 machines that have no JAX. Every function works on the device of the
 tensors it is given.
 
-This slice covers the serving render path: preprocess, binning and the
-blend forward (ops/render.py::render, apps/view_result.py). The two TPU
-kernels on that path are hand-written CUDA C++ for Hopper (csrc/, built by
-kernels.py at first use); each has a plain PyTorch version beside its
-wrapper, which runs for tensors on the CPU.
+Two slices are ported: the serving render (preprocess, binning, the blend
+forward; ops/render.py::render, apps/view_result.py) and the training step
+(the render's backward, SSIM, Adam, densify; mapper/trainer.py,
+apps/train_colmap.py). The three TPU kernels on those paths (blend
+forward, blend backward, window gather) are hand-written CUDA C++ for
+Hopper (csrc/, built by kernels.py at first use); each has a plain PyTorch
+version beside its wrapper, which runs for tensors on the CPU.
 """

@@ -24,7 +24,6 @@ from photo_slam_tpu_torch.io.images import save_image_chw
 from photo_slam_tpu_torch.models import gaussian_model as gm
 from photo_slam_tpu_torch.ops.camera_math import build_camera_matrices
 from photo_slam_tpu_torch.ops.render import RenderSettings, render
-from photo_slam_tpu_torch.utils import ply
 
 
 def load_state(path, cfg: Config, *, device) -> tuple[gm.GaussianState, int]:
@@ -32,18 +31,8 @@ def load_state(path, cfg: Config, *, device) -> tuple[gm.GaussianState, int]:
     trainer's load_ply does (photo_slam_tpu/mapper/trainer.py:631-649):
     capacity max(initial_capacity, round_capacity(n)), SH degree from the
     number of f_rest coefficients. Returns (state, sh_degree)."""
-    xyz, f_dc, f_rest, opac, log_s, quats = ply.load_gaussian_ply(path)
-    n = xyz.shape[0]
-    cap = max(cfg.renderer.initial_capacity, gm.round_capacity(n))
-    sh_deg = int(round((f_rest.shape[1] + 1) ** 0.5)) - 1
-    state = gm.empty_state(cap, sh_degree=sh_deg, device=device)
-    p = state.params
-    for dst, src in ((p.xyz, xyz), (p.features_dc, f_dc),
-                     (p.features_rest, f_rest), (p.opacity_logit, opac),
-                     (p.log_scales, log_s), (p.quats, quats)):
-        dst[:n] = torch.from_numpy(src).to(device)
-    state.live[:n] = True
-    return state, sh_deg
+    return gm.state_from_ply(path, cfg.renderer.initial_capacity,
+                             device=device)
 
 
 def view_poses(cameras, max_views: int):

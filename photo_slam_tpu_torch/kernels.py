@@ -36,6 +36,7 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # name -> argtypes of its C launcher `<name>_launch` (returns cudaError_t).
 LAUNCHERS = {
     "blend_fwd": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
+    "blend_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P],
     "window_gather": [_P, _LL, _P, _I, _I, _P, _P],
 }
 

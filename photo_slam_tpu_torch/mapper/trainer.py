@@ -1,0 +1,448 @@
+"""The training engine: the train step and the offline training loop.
+
+Counterpart of photo_slam_tpu/mapper/trainer.py (reference:
+src/gaussian_mapper.cpp:614-774, 544-608 and
+src/gaussian_trainer.cpp:22-140). One step is render -> masked
+(1-λ)·L1 + λ·(1-SSIM) -> backward through the blend (K2), the entry gather
+and preprocess -> densification statistics -> masked Adam. The rare
+structural events (densify and prune, opacity reset) are separate
+functions; capacity growth re-buckets on the host.
+
+  * The view-space gradient that densification accumulates is the
+    gradient with respect to an explicit zero `means2d_offset`.
+  * The Adam update writes the map and the moments in place (the JAX step
+    donates the same buffers).
+  * A step's metrics stay tensors on the device: nothing in train_step
+    reads a value back to the host.
+
+PyTorch runs eagerly, so train_chunk is a Python loop over the views, and
+the port always renders with the kernel path (mode "pallas").
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from pathlib import Path
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+from photo_slam_tpu_torch.config import Config
+from photo_slam_tpu_torch.mapper.sampler import KeyframeSampler
+from photo_slam_tpu_torch.models import densify as dz
+from photo_slam_tpu_torch.models import gaussian_model as gm
+from photo_slam_tpu_torch.models import optimizer as optim
+from photo_slam_tpu_torch.models.keyframe import Keyframe
+from photo_slam_tpu_torch.models.scene import Scene
+from photo_slam_tpu_torch.ops import losses
+from photo_slam_tpu_torch.ops.camera_math import CameraMatrices
+from photo_slam_tpu_torch.ops.render import (RenderSettings, principal_for,
+                                             render)
+
+
+def train_step(
+    state: gm.GaussianState,
+    opt_state: optim.AdamState,
+    cam: CameraMatrices,
+    gt_image: torch.Tensor,
+    mask: torch.Tensor,
+    lrs: optim.LearningRates,
+    bg_color: torch.Tensor,
+    lambda_dssim: float,
+    settings: RenderSettings,
+):
+    """One optimization iteration (render / loss / grad / stats / Adam).
+    The map's parameters and the Adam moments are updated in place.
+    Returns (state, opt_state, metrics of 0-d tensors)."""
+    live = state.live
+    params = gm.GaussianParams(*(p.detach().requires_grad_(True)
+                                 for p in state.params))
+    offset = torch.zeros((state.capacity, 2), dtype=torch.float32,
+                         device=live.device, requires_grad=True)
+    scales, quats, opac = gm.activated(params)
+    res = render(params.xyz, scales, quats, opac, cam, settings, bg_color,
+                 shs=gm.sh_features(params), live_mask=live,
+                 means2d_offset=offset)
+    masked = res.image * mask[None, :, :]
+    loss = losses.training_loss(masked, gt_image, lambda_dssim)
+    grads = torch.autograd.grad(loss, [*params, offset], allow_unused=True)
+    grads = [torch.zeros_like(x) if g is None else g
+             for g, x in zip(grads, [*params, offset])]
+
+    with torch.no_grad():
+        # Densification statistics (reference: src/gaussian_mapper.cpp:703-719).
+        state = dz.update_max_radii(state, res.radii, res.visible)
+        state = dz.add_densification_stats(state, grads[-1], res.visible,
+                                           settings.width, settings.height)
+        new_params, opt_state = optim.adam_step(
+            state.params, gm.GaussianParams(*grads[:-1]), opt_state, lrs,
+            live)
+        metrics = {
+            "loss": loss.detach(),
+            "psnr": losses.psnr(masked.detach(), gt_image),
+            "num_visible": res.visible.sum(dtype=torch.int32),
+            "binning_clipped": res.num_clipped,
+            "binning_overflow": res.num_overflow,
+        }
+    return state._replace(params=new_params), opt_state, metrics
+
+
+def train_chunk(state, opt_state, cams: CameraMatrices,
+                gt_images: torch.Tensor, mask: torch.Tensor,
+                lrs: optim.LearningRates, bg_color: torch.Tensor,
+                lambda_dssim: float, start_iter: int,
+                settings: RenderSettings, num_steps: int):
+    """`num_steps` sequential train steps on the views
+    (start_iter + j) % V of a resident view ring: cams with a leading view
+    axis [V, ...], gt_images [V, 3, H, W]. Returns (state, opt_state,
+    metrics) with each metric stacked over the chunk ([num_steps])."""
+    v_count = gt_images.shape[0]
+    history = []
+    for j in range(num_steps):
+        v = (start_iter + j) % v_count
+        cam = CameraMatrices(*(x[v] for x in cams))
+        state, opt_state, m = train_step(state, opt_state, cam,
+                                         gt_images[v], mask, lrs, bg_color,
+                                         lambda_dssim, settings)
+        history.append(m)
+    metrics = {k: torch.stack([m[k] for m in history]) for k in history[0]}
+    return state, opt_state, metrics
+
+
+def densify_step(state, opt_state, noise: torch.Tensor, extent, *,
+                 grad_threshold: float, min_opacity: float,
+                 max_screen_size: int, percent_dense: float):
+    """One densify + prune event; noise [2, C, 3] standard normals for the
+    split children (models/densify.densify_and_prune)."""
+    return dz.densify_and_prune(state, opt_state, noise, grad_threshold,
+                                min_opacity, extent, max_screen_size,
+                                percent_dense)
+
+
+def opacity_reset_step(state, opt_state):
+    return dz.reset_opacity(state, opt_state)
+
+
+@dataclass
+class TrainerMetrics:
+    iteration: int = 0
+    ema_loss: float = 0.0
+    last_loss: float = 0.0
+    last_psnr: float = 0.0
+    num_live: int = 0
+    num_dropped: int = 0
+
+
+class GaussianTrainer:
+    """Owns the map state on one device and runs training iterations (the
+    offline trainColmap path; the online mapper will drive it too).
+
+    `device` is where the map, the ground-truth cache and the camera
+    matrices live; `generator` (a torch.Generator on that device, seeded
+    from `seed` when not given) draws the split samples of densification.
+    """
+
+    def __init__(self, cfg: Config, scene: Scene, seed: int = 0, *, device,
+                 generator: Optional[torch.Generator] = None):
+        self.cfg = cfg
+        self.scene = scene
+        self.device = torch.device(device)
+        self.sampler = KeyframeSampler(seed)
+        self.generator = generator if generator is not None else (
+            torch.Generator(device=self.device).manual_seed(seed))
+        self.iteration = 0
+        self.default_sh = 0
+        self.ema_loss = 0.0
+        self.state: Optional[gm.GaussianState] = None
+        self.opt_state: Optional[optim.AdamState] = None
+        self.spatial_lr_scale = 1.0
+        self.position_lr_init_live = cfg.opt.position_lr_init
+        self.bg_color = torch.full((3,), 1.0 if cfg.model.white_background
+                                   else 0.0, device=self.device)
+        self.metrics = TrainerMetrics()
+        # Ground truth on the device, LRU-bounded by bytes (keyframes are
+        # sampled many times); masks are tiny and cached per (camera, size).
+        self._gt_cache: "dict[tuple, torch.Tensor]" = {}
+        self._gt_cache_bytes = 0
+        self.gt_cache_budget = 2 << 30
+        self._mask_cache: "dict[tuple, torch.Tensor]" = {}
+
+    def _device_gt(self, kf: Keyframe, level: int) -> torch.Tensor:
+        key = (kf.fid, level)
+        hit = self._gt_cache.pop(key, None)
+        if hit is not None:
+            self._gt_cache[key] = hit  # LRU: move to the back
+            return hit
+        arr = torch.from_numpy(np.ascontiguousarray(
+            kf.level_image(level), np.float32)).to(self.device)
+        self._gt_cache[key] = arr
+        self._gt_cache_bytes += arr.nbytes
+        while self._gt_cache_bytes > self.gt_cache_budget and len(
+                self._gt_cache) > 1:
+            oldest = next(iter(self._gt_cache))
+            self._gt_cache_bytes -= self._gt_cache.pop(oldest).nbytes
+        return arr
+
+    def _device_mask(self, kf: Keyframe, height: int) -> torch.Tensor:
+        key = (kf.camera.camera_id, height)
+        hit = self._mask_cache.get(key)
+        if hit is None:
+            hit = torch.from_numpy(np.ascontiguousarray(
+                kf.camera.undistort_mask(scale=height / kf.camera.height),
+                np.float32)).to(self.device)
+            self._mask_cache[key] = hit
+        return hit
+
+    # -- state management --------------------------------------------------
+
+    def initialize_map(self, points: np.ndarray, colors: np.ndarray) -> None:
+        """createFromPcd + trainingSetup
+        (reference: src/gaussian_mapper.cpp:480-489)."""
+        self.spatial_lr_scale = self.scene.compute_nerfpp_norm()
+        # Degenerate-camera floor (photo_slam_tpu/mapper/trainer.py:250-264):
+        # when the cameras clearly do not span the scene, floor the extent
+        # with the observed point-cloud radius, or percent_dense * extent
+        # falls below the median splat size and every gradient spike
+        # mass-splits the map.
+        if len(points):
+            pt_radius = 1.1 * float(np.percentile(
+                np.linalg.norm(points - points.mean(0), axis=1), 95))
+            if self.scene.cameras_extent < 0.25 * pt_radius:
+                self.scene.cameras_extent = pt_radius
+                self.spatial_lr_scale = pt_radius
+        cap = gm.round_capacity(points.shape[0] * 2,
+                                minimum=self.cfg.renderer.initial_capacity)
+        self.state = gm.create_from_pcd(points, colors,
+                                        sh_degree=self.cfg.model.sh_degree,
+                                        capacity=cap, device=self.device)
+        self.opt_state = optim.init_adam(self.state.params)
+
+    def increase_pcd(self, points: np.ndarray, colors: np.ndarray) -> int:
+        """Insert new Gaussians, growing capacity if needed. Returns the
+        number inserted."""
+        if points.shape[0] == 0:
+            return 0
+        self._ensure_capacity(points.shape[0])
+        pts = torch.as_tensor(points, dtype=torch.float32, device=self.device)
+        cols = torch.as_tensor(colors, dtype=torch.float32,
+                               device=self.device)
+        valid = torch.ones(points.shape[0], dtype=torch.bool,
+                           device=self.device)
+        self.state, dst = gm.insert_points(self.state, pts, cols, valid,
+                                           self.iteration)
+        placed = dst >= 0
+        self.opt_state = optim.zero_moments_at(
+            self.opt_state, torch.where(placed, dst, 0), placed)
+        return int(placed.sum())
+
+    def _ensure_capacity(self, incoming: int = 0) -> None:
+        cap = self.state.capacity
+        live = int(gm.num_live(self.state))
+        headroom = int(cap * self.cfg.renderer.capacity_headroom)
+        if cap >= self.cfg.renderer.max_capacity:
+            # At the memory ceiling: inserts overflow-drop instead of growing.
+            return
+        if live + incoming + headroom > cap:
+            new_cap = gm.round_capacity(int(
+                (live + incoming)
+                * (1.0 + self.cfg.renderer.capacity_headroom) * 2))
+            new_cap = max(new_cap, cap * 2)
+            new_cap = min(new_cap, self.cfg.renderer.max_capacity)
+            if new_cap <= cap:
+                return
+            self.state = gm.grow_capacity(self.state, new_cap)
+
+            def pad(moments):
+                out = []
+                for x, p in zip(moments, self.state.params):
+                    y = torch.zeros_like(p)
+                    y[:x.shape[0]] = x
+                    out.append(y)
+                return gm.GaussianParams(*out)
+
+            self.opt_state = optim.AdamState(m=pad(self.opt_state.m),
+                                             v=pad(self.opt_state.v),
+                                             step=self.opt_state.step)
+
+    # -- LR schedule ---------------------------------------------------------
+
+    def _current_lrs(self) -> optim.LearningRates:
+        """Offline schedule: the position LR follows the iteration count
+        (the online mapper's per-keyframe schedule comes with that slice)."""
+        o = self.cfg.opt
+        step = min(self.iteration, o.position_lr_max_steps)
+        pos_lr = optim.expon_lr(
+            step,
+            self.position_lr_init_live * self.spatial_lr_scale,
+            o.position_lr_final * self.spatial_lr_scale,
+            lr_delay_mult=o.position_lr_delay_mult,
+            max_steps=o.position_lr_max_steps,
+        )
+        return optim.LearningRates.create(pos_lr, o.feature_lr, o.opacity_lr,
+                                          o.scaling_lr, o.rotation_lr)
+
+    # -- one iteration -------------------------------------------------------
+
+    def train_iteration(self, kf: Optional[Keyframe] = None,
+                        fetch_metrics: bool = True,
+                        allow_opacity_reset: bool = True) -> dict[str, Any]:
+        """One pass of trainForOneIteration
+        (reference: src/gaussian_mapper.cpp:614-774).
+
+        With fetch_metrics=False nothing is read back to the host, except on
+        densify iterations (the live count and the dropped candidates);
+        the host-side metric fields keep their last fetched values."""
+        self.iteration += 1
+        it = self.iteration
+        o = self.cfg.opt
+
+        if kf is None:
+            kf = self.sampler.sample_sliding_window(self.scene.keyframes)
+        if kf is None:
+            self.iteration -= 1
+            return {}
+
+        # SH degree warm-up: +1 every 1000 iterations
+        # (reference: src/gaussian_mapper.cpp:653-658).
+        if it % 1000 == 0 and self.default_sh < self.cfg.model.sh_degree:
+            self.default_sh += 1
+
+        # Pyramid level selection (reference: 631-647).
+        level = kf.current_pyramid_level() if (
+            self.cfg.mapper.do_gaus_pyramid_training and kf.pyramid
+        ) else len(kf.pyramid)
+        gt = self._device_gt(kf, level)
+        height, width = gt.shape[1], gt.shape[2]
+        mask = self._device_mask(kf, height)
+
+        r = self.cfg.renderer
+        k_dup, per_tile = r.caps_for_mode("pallas")
+        settings = RenderSettings(
+            width=width, height=height,
+            tan_fovx=float(np.tan(0.5 * kf.camera.fovx)),
+            tan_fovy=float(np.tan(0.5 * kf.camera.fovy)),
+            sh_degree=self.default_sh, tile=r.tile,
+            max_tiles_per_gaussian=k_dup, max_per_tile=per_tile,
+            tiles_per_chunk=r.tiles_per_chunk, mode="pallas",
+            principal=principal_for(kf.camera, width, height),
+        )
+
+        self.state, self.opt_state, metrics = train_step(
+            self.state, self.opt_state, kf.matrices, gt, mask,
+            self._current_lrs(), self.bg_color, o.lambda_dssim, settings)
+
+        # Densify / prune on schedule (reference: 721-730).
+        if it < o.densify_until_iter:
+            if it > o.densify_from_iter and it % o.densification_interval == 0:
+                size_threshold = 20 if it > o.prune_big_point_after_iter else 0
+                self._ensure_capacity()
+                noise = torch.randn((2, self.state.capacity, 3),
+                                    generator=self.generator,
+                                    device=self.device)
+                self.state, self.opt_state, info = densify_step(
+                    self.state, self.opt_state, noise,
+                    self.scene.cameras_extent,
+                    grad_threshold=o.densify_grad_threshold,
+                    min_opacity=o.densify_min_opacity,
+                    max_screen_size=size_threshold,
+                    percent_dense=o.percent_dense,
+                )
+                self.metrics.num_dropped += int(info.num_dropped)
+
+            if allow_opacity_reset and o.opacity_reset_interval and (
+                it % o.opacity_reset_interval == 0
+                or (self.cfg.model.white_background
+                    and it == o.densify_from_iter)
+            ):
+                self.state, self.opt_state = opacity_reset_step(
+                    self.state, self.opt_state)
+
+        self.metrics.iteration = it
+        if fetch_metrics:
+            loss = float(metrics["loss"])
+            self.ema_loss = 0.4 * loss + 0.6 * self.ema_loss
+            self.metrics.last_loss = loss
+            self.metrics.ema_loss = self.ema_loss
+            self.metrics.last_psnr = float(metrics["psnr"])
+            self.metrics.num_live = int(gm.num_live(self.state))
+        return dict(metrics)
+
+    # -- offline loop --------------------------------------------------------
+
+    def train(self, num_iterations: Optional[int] = None,
+              log_every: int = 0) -> TrainerMetrics:
+        """trainColmap-style offline loop
+        (reference: src/gaussian_mapper.cpp:544-608)."""
+        n = num_iterations or self.cfg.opt.max_num_iterations
+        for _ in range(n):
+            self.train_iteration()
+            if log_every and self.iteration % log_every == 0:
+                print(
+                    f"[trainer] iter {self.iteration}: "
+                    f"loss {self.metrics.last_loss:.4f} "
+                    f"ema {self.ema_loss:.4f} "
+                    f"psnr {self.metrics.last_psnr:.2f} "
+                    f"live {self.metrics.num_live}"
+                )
+        return self.metrics
+
+    # -- persistence ---------------------------------------------------------
+
+    def save_ply(self, path) -> None:
+        """3DGS checkpoint of the live Gaussians (reference savePly,
+        src/gaussian_model.cpp:956-1047)."""
+        from photo_slam_tpu_torch.utils import ply
+
+        live = self.state.live.cpu().numpy()
+        p = {k: v.detach().cpu().numpy()[live]
+             for k, v in self.state.params._asdict().items()}
+        ply.save_gaussian_ply(path, p["xyz"], p["features_dc"],
+                              p["features_rest"], p["opacity_logit"],
+                              p["log_scales"], p["quats"])
+
+    def save_checkpoint(self, path) -> None:
+        """Full training state (map, optimizer moments and step, schedule
+        state) for mid-training resume, under the JAX package's .npz keys so
+        that either package loads the other's checkpoints."""
+        def host(x):
+            return x.detach().cpu().numpy()
+
+        payload = {}
+        for name, arr in self.state.params._asdict().items():
+            payload[f"p_{name}"] = host(arr)
+        for name in ("live", "max_radii2d", "xyz_grad_accum", "denom",
+                     "exist_since_iter"):
+            payload[f"s_{name}"] = host(getattr(self.state, name))
+        for name, arr in self.opt_state.m._asdict().items():
+            payload[f"m_{name}"] = host(arr)
+        for name, arr in self.opt_state.v._asdict().items():
+            payload[f"v_{name}"] = host(arr)
+        payload["meta"] = np.array([
+            self.iteration, self.default_sh, int(self.opt_state.step)])
+        payload["meta_f"] = np.array([
+            self.ema_loss, self.spatial_lr_scale, self.position_lr_init_live])
+        Path(path).parent.mkdir(parents=True, exist_ok=True)
+        np.savez_compressed(path, **payload)
+
+    def load_checkpoint(self, path) -> None:
+        data = np.load(path)
+        fields = gm.GaussianParams._fields
+        self.state = gm.state_from_numpy(
+            {k: data[f"p_{k}"] for k in fields}, data["s_live"],
+            device=self.device, max_radii2d=data["s_max_radii2d"],
+            xyz_grad_accum=data["s_xyz_grad_accum"], denom=data["s_denom"],
+            exist_since_iter=data["s_exist_since_iter"])
+        self.opt_state = optim.adam_from_numpy(
+            {k: data[f"m_{k}"] for k in fields},
+            {k: data[f"v_{k}"] for k in fields}, data["meta"][2],
+            device=self.device)
+        self.iteration = int(data["meta"][0])
+        self.default_sh = int(data["meta"][1])
+        self.ema_loss = float(data["meta_f"][0])
+        self.spatial_lr_scale = float(data["meta_f"][1])
+        self.position_lr_init_live = float(data["meta_f"][2])
+
+    def load_ply(self, path) -> None:
+        self.state, self.default_sh = gm.state_from_ply(
+            path, self.cfg.renderer.initial_capacity, device=self.device)
+        self.opt_state = optim.init_adam(self.state.params)

@@ -1,13 +1,15 @@
-"""Tile blend forward: the renderer's hot loop.
+"""Tile blend: the renderer's hot loop, forward and backward.
 
-Counterpart of photo_slam_tpu/ops/pallas/blend.py::pallas_blend, forward
-only (the backward comes with the training slice). `pallas_blend` is the
-wrapper of the kernel K1, csrc/blend_fwd.cu; `blend_fwd_plain` is its plain
-PyTorch version.
+Counterpart of photo_slam_tpu/ops/pallas/blend.py. `pallas_blend` is the
+differentiable blend (a torch.autograd.Function, the JAX custom_vjp): its
+forward is the kernel K1 (wrapper `blend_fwd`, csrc/blend_fwd.cu), its
+backward the kernel K2 (wrapper `blend_bwd`, csrc/blend_bwd.cu).
+`blend_fwd_plain` and `blend_bwd_plain` are their plain PyTorch versions.
 
 Packed entry layout (16 f32 lanes per entry, as in the JAX package):
   0: mean2d.x   1: mean2d.y   2: conic.a   3: conic.b   4: conic.c
   5: opacity    6: r          7: g         8: b         9-15: unused
+The gradient rows use the same layout (lanes 9-15 are always zero).
 Outputs keep the JAX layouts: color [T, 3, 8, 128], final_T [T, 8, 128],
 n_contrib [T, 8, 128], pixel p = r*32 + c of the 32x32 tile flattened as
 8x128.
@@ -80,10 +82,33 @@ def blend_fwd_plain(data_tiles: torch.Tensor, counts: torch.Tensor,
             n_contrib.view(nb, PIX_SUB, PIX_LANE))
 
 
-def pallas_blend(data_tiles: torch.Tensor, counts: torch.Tensor,
-                 tiles_x: int, num_tiles: int,
-                 tile_ids: torch.Tensor | None = None):
-    """Blend packed per-tile entries (forward of the JAX pallas_blend).
+def _check_tensor(who, name, x, dev, dtype, shape):
+    if (x.device != dev or x.dtype != dtype or tuple(x.shape) != shape
+            or not x.is_contiguous()):
+        raise ValueError(f"{who}: {name} must be a contiguous {dtype} "
+                         f"{list(shape)} tensor on {dev}, got {x.dtype} "
+                         f"{tuple(x.shape)} on {x.device}")
+
+
+def _check_data(who, data_tiles, num_tiles):
+    dev = data_tiles.device
+    if dev.type != "cuda":
+        raise ValueError(f"{who}: unsupported device {dev}")
+    if (data_tiles.dtype != torch.float32 or data_tiles.dim() != 3
+            or data_tiles.shape[2] != FEAT
+            or data_tiles.shape[0] != num_tiles
+            or not data_tiles.is_contiguous() or data_tiles.data_ptr() % 16):
+        raise ValueError(
+            f"{who}: data_tiles must be a contiguous, 16-byte aligned "
+            f"float32 [{num_tiles}, K, {FEAT}] tensor, got {data_tiles.dtype} "
+            f"{tuple(data_tiles.shape)}")
+
+
+def blend_fwd(data_tiles: torch.Tensor, counts: torch.Tensor,
+              tiles_x: int, num_tiles: int,
+              tile_ids: torch.Tensor | None = None):
+    """Blend packed per-tile entries: the forward kernel K1 (the JAX
+    _blend_fwd_call), not differentiable; `pallas_blend` is.
 
     data_tiles [T, K, 16] float32, counts [T] int32 valid entries per tile
     (depth-sorted prefixes), tiles_x tiles per image row, num_tiles = T; with
@@ -92,30 +117,18 @@ def pallas_blend(data_tiles: torch.Tensor, counts: torch.Tensor,
     [T, 8, 128], n_contrib [T, 8, 128]); the background is the caller's.
 
     On a CUDA tensor it launches csrc/blend_fwd.cu (or raises); on a CPU
-    tensor it runs blend_fwd_plain. `pallas_blend.launches` counts kernel
+    tensor it runs blend_fwd_plain. `blend_fwd.launches` counts kernel
     launches.
     """
     if data_tiles.device.type == "cpu":
         return blend_fwd_plain(data_tiles, counts, tiles_x, num_tiles,
                                tile_ids)
+    _check_data("blend_fwd", data_tiles, num_tiles)
     dev = data_tiles.device
-    if dev.type != "cuda":
-        raise ValueError(f"pallas_blend: unsupported device {dev}")
     ids = _tile_ids_or_iota(tile_ids, num_tiles, dev).contiguous()
     nb, k_max = data_tiles.shape[0], data_tiles.shape[1]
-    if (data_tiles.dtype != torch.float32 or data_tiles.dim() != 3
-            or data_tiles.shape[2] != FEAT or nb != num_tiles
-            or not data_tiles.is_contiguous() or data_tiles.data_ptr() % 16):
-        raise ValueError(
-            f"pallas_blend: data_tiles must be a contiguous, 16-byte aligned "
-            f"float32 [{num_tiles}, K, {FEAT}] tensor, got {data_tiles.dtype} "
-            f"{tuple(data_tiles.shape)}")
     for name, x in (("counts", counts), ("tile_ids", ids)):
-        if (x.device != dev or x.dtype != torch.int32
-                or tuple(x.shape) != (nb,) or not x.is_contiguous()):
-            raise ValueError(f"pallas_blend: {name} must be a contiguous "
-                             f"int32 [{nb}] tensor on {dev}, got {x.dtype} "
-                             f"{tuple(x.shape)} on {x.device}")
+        _check_tensor("blend_fwd", name, x, dev, torch.int32, (nb,))
     color = torch.empty((nb, 3, PIX_SUB, PIX_LANE), dtype=torch.float32,
                         device=dev)
     final_t = torch.empty((nb, PIX_SUB, PIX_LANE), dtype=torch.float32,
@@ -128,8 +141,165 @@ def pallas_blend(data_tiles: torch.Tensor, counts: torch.Tensor,
                  nb, k_max, tiles_x, color.data_ptr(), final_t.data_ptr(),
                  n_contrib.data_ptr(), torch.cuda.current_stream().cuda_stream)
     kernels.check_launch("blend_fwd", err)
-    pallas_blend.launches += 1
+    blend_fwd.launches += 1
     return color, final_t, n_contrib
 
 
-pallas_blend.launches = 0
+blend_fwd.launches = 0
+
+
+def blend_bwd_plain(data_tiles: torch.Tensor, counts: torch.Tensor,
+                    final_t: torch.Tensor, n_contrib: torch.Tensor,
+                    g_color: torch.Tensor, g_t: torch.Tensor, tiles_x: int,
+                    num_tiles: int,
+                    tile_ids: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain PyTorch version of the blend backward kernel: a loop over the
+    entry rows from max(counts) - 1 down to 0, vectorized over tiles and
+    pixels, rebuilding T from final_T as the reference does
+    (cuda_rasterizer/backward.cu:398-557). Each step reduces its pixels into
+    d_data[:, k, :9]; rows >= counts and lanes 9-15 stay exact zeros, and
+    those rows are never used, so a NaN there changes nothing.
+
+    counts are the tile's counts_eff (min(count, max n_contrib)); g_color
+    [T, 3, 8, 128] and g_t [T, 8, 128] are the cotangents of color and
+    final_T. Returns d_data [T, K, 16]."""
+    dev = data_tiles.device
+    nb, k_max, _ = data_tiles.shape
+    p = TILE_PS * TILE_PS
+    ids = _tile_ids_or_iota(tile_ids, num_tiles, dev)
+    pix = torch.arange(p, device=dev)
+    px = ((ids % tiles_x) * TILE_PS)[:, None].to(torch.float32) \
+        + (pix % TILE_PS).to(torch.float32)[None, :]
+    py = ((ids // tiles_x) * TILE_PS)[:, None].to(torch.float32) \
+        + (pix // TILE_PS).to(torch.float32)[None, :]
+
+    nc = n_contrib.reshape(nb, p)
+    trans = final_t.reshape(nb, p)
+    gcol = g_color.reshape(nb, 3, p)
+    gtt = g_t.reshape(nb, p) * trans
+    bc = torch.zeros((nb, p), dtype=torch.float32, device=dev)
+    d_data = torch.zeros((nb, k_max, FEAT), dtype=torch.float32, device=dev)
+    cnt = counts[:, None]
+    n_iter = min(k_max, int(counts.max())) if nb else 0
+    for k in range(n_iter - 1, -1, -1):
+        row = data_tiles[:, k, :]                          # [T, 16]
+        dx = row[:, 0:1] - px
+        dy = row[:, 1:2] - py
+        power = (-0.5 * (row[:, 2:3] * dx * dx + row[:, 4:5] * dy * dy)
+                 - row[:, 3:4] * dx * dy)
+        ex = torch.exp(power)
+        raw = row[:, 5:6] * ex
+        alpha = torch.clamp_max(raw, ALPHA_MAX)
+        valid = ((k < nc) & (k < cnt) & (power <= 0.0)
+                 & (alpha >= ALPHA_MIN))
+        om = torch.where(valid, torch.clamp_min(1.0 - alpha, 0.01), 1.0)
+        trans = torch.where(valid, trans / om, trans)      # T before entry k
+        a_t = torch.where(valid, alpha * trans, 0.0)
+        gc = (gcol[:, 0] * row[:, 6:7] + gcol[:, 1] * row[:, 7:8]
+              + gcol[:, 2] * row[:, 8:9])
+        dl_dalpha = torch.where(valid & (raw < ALPHA_MAX),
+                                gc * trans - (bc + gtt) / om, 0.0)
+        bc = bc + torch.where(valid, a_t * gc, 0.0)
+        dl_do = dl_dalpha * ex
+        dl_dp = dl_do * row[:, 5:6]
+        s_x = (dl_dp * dx).sum(-1)
+        s_y = (dl_dp * dy).sum(-1)
+        sums = torch.stack([
+            -(row[:, 2] * s_x + row[:, 3] * s_y),
+            -(row[:, 4] * s_y + row[:, 3] * s_x),
+            -0.5 * (dl_dp * dx * dx).sum(-1),
+            -(dl_dp * dx * dy).sum(-1),
+            -0.5 * (dl_dp * dy * dy).sum(-1),
+            dl_do.sum(-1),
+            (a_t * gcol[:, 0]).sum(-1),
+            (a_t * gcol[:, 1]).sum(-1),
+            (a_t * gcol[:, 2]).sum(-1),
+        ], dim=-1)
+        d_data[:, k, :9] = torch.where(k < cnt, sums, 0.0)
+    return d_data
+
+
+def blend_bwd(data_tiles: torch.Tensor, counts: torch.Tensor,
+              final_t: torch.Tensor, n_contrib: torch.Tensor,
+              g_color: torch.Tensor, g_t: torch.Tensor, tiles_x: int,
+              num_tiles: int,
+              tile_ids: torch.Tensor | None = None) -> torch.Tensor:
+    """Gradient of the blend with respect to the packed entries: the
+    backward kernel K2 (the JAX _blend_bwd_call). Arguments as
+    blend_bwd_plain; returns d_data [T, K, 16].
+
+    On a CUDA tensor it launches csrc/blend_bwd.cu (or raises); on a CPU
+    tensor it runs blend_bwd_plain. `blend_bwd.launches` counts kernel
+    launches.
+    """
+    if data_tiles.device.type == "cpu":
+        return blend_bwd_plain(data_tiles, counts, final_t, n_contrib,
+                               g_color, g_t, tiles_x, num_tiles, tile_ids)
+    _check_data("blend_bwd", data_tiles, num_tiles)
+    dev = data_tiles.device
+    ids = _tile_ids_or_iota(tile_ids, num_tiles, dev).contiguous()
+    nb, k_max = data_tiles.shape[0], data_tiles.shape[1]
+    pix = (nb, PIX_SUB, PIX_LANE)
+    for name, x, dtype, shape in (
+            ("counts", counts, torch.int32, (nb,)),
+            ("tile_ids", ids, torch.int32, (nb,)),
+            ("final_t", final_t, torch.float32, pix),
+            ("n_contrib", n_contrib, torch.int32, pix),
+            ("g_color", g_color, torch.float32, (nb, 3, PIX_SUB, PIX_LANE)),
+            ("g_t", g_t, torch.float32, pix)):
+        _check_tensor("blend_bwd", name, x, dev, dtype, shape)
+    d_data = torch.empty_like(data_tiles)
+    fn = kernels.launcher("blend_bwd")
+    with torch.cuda.device(dev):
+        err = fn(data_tiles.data_ptr(), counts.data_ptr(), ids.data_ptr(),
+                 final_t.data_ptr(), n_contrib.data_ptr(), g_color.data_ptr(),
+                 g_t.data_ptr(), nb, k_max, tiles_x, d_data.data_ptr(),
+                 torch.cuda.current_stream().cuda_stream)
+    kernels.check_launch("blend_bwd", err)
+    blend_bwd.launches += 1
+    return d_data
+
+
+blend_bwd.launches = 0
+
+
+class _PallasBlend(torch.autograd.Function):
+    """The blend with its gradient: forward K1, backward K2 (the JAX
+    pallas_blend custom_vjp, blend.py:385-524). The kernels are looked up
+    by module name at each call, so a caller may put the plain versions in
+    their place."""
+
+    @staticmethod
+    def forward(ctx, data_tiles, counts, tiles_x, num_tiles, tile_ids):
+        color, final_t, n_contrib = blend_fwd(data_tiles, counts, tiles_x,
+                                              num_tiles, tile_ids)
+        ctx.save_for_backward(data_tiles, counts, final_t, n_contrib,
+                              tile_ids)
+        ctx.tiles_x, ctx.num_tiles = tiles_x, num_tiles
+        ctx.mark_non_differentiable(n_contrib)
+        return color, final_t, n_contrib
+
+    @staticmethod
+    def backward(ctx, g_color, g_t, _g_n):
+        data_tiles, counts, final_t, n_contrib, tile_ids = ctx.saved_tensors
+        nb = data_tiles.shape[0]
+        # Entries past the last contributor of every pixel of the tile have
+        # zero gradient: bound the walk by the tile's max n_contrib
+        # (blend.py:507-512).
+        nc_max = n_contrib.reshape(nb, -1).amax(dim=-1)
+        counts_eff = torch.minimum(counts, nc_max).to(torch.int32)
+        d_data = blend_bwd(data_tiles, counts_eff, final_t, n_contrib,
+                           g_color.contiguous(), g_t.contiguous(),
+                           ctx.tiles_x, ctx.num_tiles, tile_ids)
+        return d_data, None, None, None, None
+
+
+def pallas_blend(data_tiles: torch.Tensor, counts: torch.Tensor,
+                 tiles_x: int, num_tiles: int,
+                 tile_ids: torch.Tensor | None = None):
+    """Blend packed per-tile entries, differentiably with respect to
+    data_tiles (the JAX pallas_blend). Arguments and outputs as blend_fwd;
+    n_contrib carries no gradient. The forward launches K1 and the backward
+    K2 on CUDA tensors; CPU tensors run their plain versions."""
+    return _PallasBlend.apply(data_tiles, counts, tiles_x, num_tiles,
+                              tile_ids)

@@ -189,15 +189,14 @@ def preprocess(
     lam = mid + torch.sqrt(torch.clamp_min(mid * mid - det, 0.1))
     radius_f = torch.ceil(3.0 * torch.sqrt(lam))
 
-    means2d = torch.stack(
-        [ndc_to_pixel(p_proj[..., 0], width),
-         ndc_to_pixel(p_proj[..., 1], height)],
-        dim=-1,
-    )
+    px = ndc_to_pixel(p_proj[..., 0], width)
+    py = ndc_to_pixel(p_proj[..., 1], height)
     if principal is not None:
-        means2d = means2d + torch.tensor(
-            [principal[0] - 0.5 * width, principal[1] - 0.5 * height],
-            dtype=torch.float32, device=means2d.device)
+        # Python scalars, not a tensor copied from the host: such a copy
+        # would make every render wait for the card.
+        px = px + (principal[0] - 0.5 * width)
+        py = py + (principal[1] - 0.5 * height)
+    means2d = torch.stack([px, py], dim=-1)
 
     on_screen = (
         (means2d[..., 0] + radius_f > 0)

@@ -1,10 +1,15 @@
-"""Public render API.
+"""Public differentiable render API.
 
 Counterpart of photo_slam_tpu/ops/render.py (reference:
 src/gaussian_renderer.cpp:23-149): a function of activated Gaussian
-attributes. PyTorch runs eagerly, so there is no render_jit; serving paths
-call `render` directly. mode="pallas" is the hand-written kernel path
-(ops/tiled.render_pallas), mode="dense" the exact oracle (ops/dense.py).
+attributes, differentiable with respect to means3d, scales, quats,
+opacities, shs / colors_precomp and means2d_offset. The reference's
+zero `screenspace_points` tensor with retain_grad (the densification
+statistic) is the explicit `means2d_offset` argument: pass zeros and take
+the gradient with respect to it. PyTorch runs eagerly, so there is no
+render_jit; callers call `render` directly. mode="pallas" is the
+hand-written kernel path (ops/tiled.render_pallas), mode="dense" the exact
+oracle (ops/dense.py).
 """
 from __future__ import annotations
 
@@ -45,6 +50,18 @@ class RenderSettings(NamedTuple):
     # Continuation passes run only over this many overflowed tiles with the
     # most residual light. 0 = every tile gets a continuation window.
     overflow_compact: int = 128
+
+
+def principal_for(camera, width: int, height: int):
+    """(cx, cy) scaled to a render of (width, height) for an off-center
+    camera, or None when the camera is (effectively) centered
+    (photo_slam_tpu/ops/render.py::principal_for)."""
+    sx = width / camera.width
+    sy = height / camera.height
+    cx, cy = camera.cx * sx, camera.cy * sy
+    if abs(cx - 0.5 * width) < 1e-6 and abs(cy - 0.5 * height) < 1e-6:
+        return None
+    return (float(cx), float(cy))
 
 
 class RenderResult(NamedTuple):

@@ -1,9 +1,13 @@
 """Tiled kernel renderer: bin at 32px tiles, pack entries, blend per tile.
 
-Counterpart of photo_slam_tpu/ops/tiled.py::render_pallas, forward only.
-The entry gathers (`entry_gather`, `entry_gather_windows`) are the row
-gather feat[max(id, 0) // k_dup]; their scatter-free transposes come with
-the training slice.
+Counterpart of photo_slam_tpu/ops/tiled.py::render_pallas, differentiable
+with respect to the preprocessed Gaussians (binning sees detached inputs,
+as JAX's stop_gradient does). `entry_gather` is the row gather
+feat[max(id, 0) // k_dup]; its transpose (`entry_gather_transpose`) adds
+each [T, K, 16] gradient row back into its Gaussian with an f32
+`index_add_`, where the JAX package routes bf16 rows through sorts
+(photo_slam_tpu/ops/tiled.py:97-218, 245-286, a TPU workaround). Only the
+lanes 0-8 carry gradient.
 """
 from __future__ import annotations
 
@@ -16,12 +20,43 @@ from photo_slam_tpu_torch.ops.dense import RenderOutput
 from photo_slam_tpu_torch.ops.preprocess import Preprocessed, tight_extents
 
 
+GRAD_LANES = 9  # packed lanes that carry gradient (ops/blend.py layout)
+
+
+def entry_gather_transpose(g: torch.Tensor, entry_lists: torch.Tensor,
+                           k_dup: int, n: int) -> torch.Tensor:
+    """Transpose of entry_gather: [n, D] f32 sums of the gradient rows g
+    [..., D] over each Gaussian's entries (invalid ids add nothing). Lanes
+    >= GRAD_LANES are zero."""
+    d = g.shape[-1]
+    valid = entry_lists >= 0
+    idx = torch.where(valid, entry_lists // k_dup, 0).reshape(-1)
+    rows = torch.where(valid[..., None], g[..., :GRAD_LANES], 0.0)
+    out = torch.zeros((n, GRAD_LANES), dtype=torch.float32, device=g.device)
+    out.index_add_(0, idx, rows.reshape(-1, GRAD_LANES))
+    return torch.nn.functional.pad(out, (0, d - GRAD_LANES))
+
+
+class _EntryGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, feat, entry_lists, k_dup):
+        ctx.save_for_backward(entry_lists)
+        ctx.k_dup, ctx.n = k_dup, feat.shape[0]
+        return feat[torch.where(entry_lists >= 0, entry_lists // k_dup, 0)]
+
+    @staticmethod
+    def backward(ctx, g):
+        (entry_lists,) = ctx.saved_tensors
+        return (entry_gather_transpose(g, entry_lists, ctx.k_dup, ctx.n),
+                None, None)
+
+
 def entry_gather(feat: torch.Tensor, entry_lists: torch.Tensor,
                  k_dup: int) -> torch.Tensor:
     """Per-entry rows of `feat` [N, D] for entry ids (gaussian * k_dup +
-    slot, -1 invalid): [..., D], invalid ids reading Gaussian 0."""
-    idx = torch.where(entry_lists >= 0, entry_lists // k_dup, 0)
-    return feat[idx]
+    slot, -1 invalid): [..., D], invalid ids reading Gaussian 0.
+    Differentiable in feat through entry_gather_transpose."""
+    return _EntryGather.apply(feat, entry_lists, k_dup)
 
 
 def pack_features(prep: Preprocessed, opacities: torch.Tensor) -> torch.Tensor:
@@ -64,9 +99,11 @@ def render_pallas(
     k_dup = max_tiles_per_gaussian
 
     binning = bin_gaussians(
-        prep.means2d, prep.depths, prep.radii, prep.visible, width, height,
-        tile=tile, max_tiles_per_gaussian=k_dup, max_per_tile=max_per_tile,
-        extents=tight_extents(prep.conics, opacities, prep.radii),
+        prep.means2d.detach(), prep.depths.detach(), prep.radii, prep.visible,
+        width, height, tile=tile, max_tiles_per_gaussian=k_dup,
+        max_per_tile=max_per_tile,
+        extents=tight_extents(prep.conics.detach(), opacities.detach(),
+                              prep.radii),
     )
 
     feat = pack_features(prep, opacities)
@@ -76,7 +113,7 @@ def render_pallas(
 
     t_sub = min(overflow_compact, num_tiles) if overflow_compact else 0
     if 0 < t_sub < num_tiles:
-        t_res = final_t.reshape(num_tiles, -1).sum(dim=-1)
+        t_res = final_t.detach().reshape(num_tiles, -1).sum(dim=-1)
         overflowed = binning.raw_counts > max_per_tile
         score = torch.where(overflowed, t_res, -1.0)
         order = torch.argsort(-score, stable=True)[:t_sub].to(torch.int32)

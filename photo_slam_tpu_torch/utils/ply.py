@@ -1,7 +1,7 @@
 """3DGS-standard PLY checkpoint I/O (binary little-endian), numpy-only.
 
-The checkpoint half of the JAX package's photo_slam_tpu/utils/ply.py,
-unchanged: files written by either package load in the other bit for bit.
+photo_slam_tpu/utils/ply.py, copied: files written by either package load
+in the other bit for bit.
 
 Byte-layout compatible with the reference's savePly/loadPly
 (reference: src/gaussian_model.cpp:838-1047, written via tinyply): vertex
@@ -9,6 +9,9 @@ properties x,y,z, nx,ny,nz (zeros), f_dc_0..2, f_rest_0..(3K-1) in
 channel-major order ([N,3,K_rest] flattened), opacity (logit), scale_0..2
 (log), rot_0..3 (wxyz, unnormalized). Any 3DGS viewer/tool can open these
 files, and the reference's outputs load here.
+
+Also writes input.ply sparse point clouds (saveSparsePointsPly,
+src/gaussian_model.cpp:1049-1088: x,y,z,nx,ny,nz,red,green,blue uchar).
 """
 from __future__ import annotations
 
@@ -146,3 +149,40 @@ def load_gaussian_ply(path):
         log_scales.astype(np.float32),
         quats.astype(np.float32),
     )
+
+
+def save_points_ply(path, xyz: np.ndarray, colors_uint8: np.ndarray) -> None:
+    """Sparse input point cloud (input.ply) with uchar RGB
+    (reference: src/gaussian_model.cpp:1049-1088)."""
+    n = xyz.shape[0]
+    props = (
+        [(nm, "float") for nm in ("x", "y", "z", "nx", "ny", "nz")]
+        + [(nm, "uchar") for nm in ("red", "green", "blue")]
+    )
+    dtype = np.dtype([
+        ("x", "<f4"), ("y", "<f4"), ("z", "<f4"),
+        ("nx", "<f4"), ("ny", "<f4"), ("nz", "<f4"),
+        ("red", "u1"), ("green", "u1"), ("blue", "u1"),
+    ])
+    rec = np.zeros(n, dtype=dtype)
+    rec["x"], rec["y"], rec["z"] = xyz[:, 0], xyz[:, 1], xyz[:, 2]
+    rec["red"], rec["green"], rec["blue"] = (
+        colors_uint8[:, 0], colors_uint8[:, 1], colors_uint8[:, 2])
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    with open(path, "wb") as f:
+        f.write(_header(n, props))
+        f.write(rec.tobytes())
+
+
+def load_points_ply(path):
+    """Read x,y,z (+ RGB if present) from a generic vertex PLY."""
+    fields = read_ply_fields(path)
+    xyz = np.stack([fields["x"], fields["y"], fields["z"]], axis=1).astype(np.float32)
+    if "red" in fields:
+        rgb = np.stack([fields["red"], fields["green"], fields["blue"]],
+                       axis=1)
+        if rgb.dtype == np.uint8:
+            rgb = rgb.astype(np.float32) / 255.0
+        return xyz, rgb.astype(np.float32)
+    return xyz, None

@@ -100,6 +100,10 @@ def test_port_imports_with_jax_blocked():
         "import photo_slam_tpu_torch\n"
         "import photo_slam_tpu_torch.ops.render\n"
         "import photo_slam_tpu_torch.apps.view_result\n"
+        "import photo_slam_tpu_torch.apps.train_colmap\n"
+        "import photo_slam_tpu_torch.mapper.trainer\n"
+        "import photo_slam_tpu_torch.models.densify\n"
+        "import photo_slam_tpu_torch.models.optimizer\n"
         "import photo_slam_tpu_torch.kernels\n"
         "assert not any(m == 'jax' or m.startswith('jax.') for m, v in\n"
         "               sys.modules.items() if v is not None)\n"

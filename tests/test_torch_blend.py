@@ -10,6 +10,17 @@ from photo_slam_tpu.ops.pallas.blend import pallas_blend as jblend
 from photo_slam_tpu_torch.ops import blend as tblend
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread per test process: the suite runs its files in
+    parallel workers, and these tensors are small, so more threads only
+    oversubscribe the cores. Imported by the other port test files."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def packed_tiles(num_tiles, k, tiles_x, seed, garbage=0.5):
     """Random [T, K, 16] entries scattered around their tiles, with counts
     below K and `garbage` in every lane of the rows past each count (JAX's
@@ -88,10 +99,10 @@ def test_plain_matches_jax_with_tile_ids():
 
 def test_wrapper_on_cpu_runs_plain_and_counts_no_launch():
     data, counts = packed_tiles(2, 64, 2, seed=4)
-    before = tblend.pallas_blend.launches
+    before = tblend.blend_fwd.launches
     out = tblend.pallas_blend(torch.from_numpy(data), torch.from_numpy(counts),
                               2, 2)
-    assert tblend.pallas_blend.launches == before
+    assert tblend.blend_fwd.launches == before
     for a, b in zip(out, tblend.blend_fwd_plain(torch.from_numpy(data),
                                                 torch.from_numpy(counts),
                                                 2, 2)):
