@@ -119,12 +119,13 @@ def run_train_steps(model, mode, steps=5, cap=64):
 
 @pytest.mark.parametrize("mode", ["pallas", "tiled"])
 def test_train_step_tracks_jax_over_five_steps(mode):
-    """Loss per step within 1e-4 relative. Against JAX tiled (f32
-    autodiff over the same entries) each parameter group's 5-step update
-    within 6e-3 of its largest; against JAX pallas, whose transpose rounds
-    routed gradient rows to bf16, Adam turns the ~0.4 % gradient noise of
-    near-zero gradients into O(1) differences of a few updates, so there the
-    parameters are held within 6e-3 of each group's largest parameter."""
+    """Loss per step within 1e-4 relative, and each parameter group's
+    5-step update within a share of its largest update. Against JAX tiled
+    (f32 autodiff over the same entries) the share is 6e-3. Against JAX
+    pallas, whose transpose rounds routed gradient rows to bf16, Adam turns
+    the gradient noise of near-zero gradients into larger differences of a
+    few updates (at most 9.1e-3 of the largest, in quats), so there it is
+    2e-2."""
     arrays, losses, (t_state, t_opt), (j_state, j_opt) = run_train_steps(
         gt_model(n=40, seed=5), mode)
     for got, want in losses:
@@ -135,9 +136,10 @@ def test_train_step_tracks_jax_over_five_steps(mode):
             continue
         a = getattr(t_state.params, k).numpy() - arrays[k]
         b = np.asarray(getattr(j_state.params, k)) - arrays[k]
-        scale = np.abs(b if mode == "tiled" else b + arrays[k]).max()
-        assert np.abs(b).max() > 0, k
-        np.testing.assert_allclose(a, b, atol=6e-3 * max(scale, 1e-12),
+        scale = np.abs(b).max()
+        assert scale > 0, k
+        share = 6e-3 if mode == "tiled" else 2e-2
+        np.testing.assert_allclose(a, b, atol=share * scale,
                                    err_msg=f"update of {k}")
     scale = np.abs(np.asarray(j_state.xyz_grad_accum)).max()
     np.testing.assert_allclose(t_state.xyz_grad_accum.numpy(),
