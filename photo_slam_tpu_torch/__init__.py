@@ -6,11 +6,12 @@ under the same path. It imports torch and numpy, never jax: it runs on
 machines that have no JAX. Every function works on the device of the
 tensors it is given.
 
-Two slices are ported: the serving render (preprocess, binning, the blend
-forward; ops/render.py::render, apps/view_result.py) and the training step
-(the render's backward, SSIM, Adam, densify; mapper/trainer.py,
-apps/train_colmap.py). The three TPU kernels on those paths (blend
-forward, blend backward, window gather) are hand-written CUDA C++ for
-Hopper (csrc/, built by kernels.py at first use); each has a plain PyTorch
-version beside its wrapper, which runs for tensors on the CPU.
+Three slices are ported: the serving render (preprocess, binning, the
+blend forward; ops/render.py::render, apps/view_result.py), the training
+step (the render's backward, SSIM, Adam, densify; mapper/trainer.py,
+apps/train_colmap.py) and the blend experiments X1-X4 (tools/). Every TPU
+kernel of the JAX package and its tools has a hand-written CUDA C++
+counterpart for Hopper (csrc/, nine kernels, built by kernels.py at first
+use); each has a plain PyTorch version beside its wrapper, which runs for
+tensors on the CPU.
 """

@@ -38,6 +38,13 @@ LAUNCHERS = {
     "blend_fwd": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
     "blend_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P],
     "window_gather": [_P, _LL, _P, _I, _I, _P, _P],
+    # The blend experiments (photo_slam_tpu_torch/tools/).
+    "blend16_fwd": [_P, _P, _I, _I, _P, _P, _P, _P],
+    "blend16_bwd": [_P, _P, _P, _P, _P, _P, _I, _I, _P, _P],
+    "blend_vec_fwd": [_P, _P, _I, _I, _I, _P, _P, _P, _P],
+    "blend_bf16_fwd": [_P, _P, _I, _I, _I, _P, _P, _P, _P],
+    "vpu_dtype": [_P, _P, _LL, _I, _I, _P],
+    "vpu_dtype_exp": [_P, _P, _LL, _I, _I, _P],
 }
 
 

@@ -1,0 +1,90 @@
+"""chip_smoke.py's pricing of the blend kernels' bounds on the CPU:
+blend_pair_counts, which counts the entry-pixel pairs of each kind a
+forward (K1's loop) and a backward (K2's) evaluate, against a count made
+pixel by pixel, for K1's 32 px tiles, X4's 16 px quadrants and X1's bf16
+chain."""
+import numpy as np
+import pytest
+import torch
+
+import chip_smoke as cs
+from photo_slam_tpu_torch.ops import blend as blend_mod
+from photo_slam_tpu_torch.tools import exp_blend16 as tx4
+from photo_slam_tpu_torch.tools import exp_blend_bf16 as tx1
+from test_torch_blend import one_torch_thread, packed_tiles  # noqa: F401
+
+
+def count_by_pixel(power, alpha, counts, n_contrib, amin):
+    """The kinds of blend_pair_counts, walking each pixel on its own:
+    power, alpha [B, K, P] float32 numpy."""
+    tally = dict.fromkeys(("k1_power_fail", "k1_alpha_fail", "k1_stop",
+                           "k1_applied", "k2_power_fail", "k2_alpha_fail",
+                           "k2_valid"), 0)
+    nb, _, npix = power.shape
+    for b in range(nb):
+        for p in range(npix):
+            trans = np.float32(1.0)
+            for k in range(counts[b]):
+                if not power[b, k, p] <= 0:
+                    tally["k1_power_fail"] += 1
+                elif not alpha[b, k, p] >= amin:
+                    tally["k1_alpha_fail"] += 1
+                else:
+                    test_t = trans * (np.float32(1.0) - alpha[b, k, p])
+                    if test_t < blend_mod.T_EPS:
+                        tally["k1_stop"] += 1
+                        break
+                    tally["k1_applied"] += 1
+                    trans = test_t
+            for k in range(min(counts[b], n_contrib[b, p])):
+                if not power[b, k, p] <= 0:
+                    tally["k2_power_fail"] += 1
+                elif not alpha[b, k, p] >= amin:
+                    tally["k2_alpha_fail"] += 1
+                else:
+                    tally["k2_valid"] += 1
+    return tally
+
+
+@pytest.mark.parametrize("case", ["k1", "x4", "x1"])
+def test_pair_counts_match_a_count_by_pixel(case):
+    if case == "x4":
+        rng = np.random.RandomState(5)
+        tab = np.zeros((1, 48, 4, 16), np.float32)
+        tab[..., 0:2] = rng.rand(1, 48, 4, 2) * 24 - 4
+        tab[..., 2] = tab[..., 4] = rng.rand(1, 48, 4) * 0.05 + 0.01
+        tab[..., 5] = rng.rand(1, 48, 4) * 0.6 + 0.39
+        tab[..., 6:9] = rng.rand(1, 48, 4, 3)
+        counts = torch.tensor([48, 30, 0, 7], dtype=torch.int32)
+        d16c = torch.from_numpy(tab)
+        data = tx4._quadrant_rows(d16c)
+        n_contrib = tx4._quadrant_pixels(tx4.blend16_fwd_plain(d16c, counts,
+                                                               1)[2])
+        power_alpha = cs.f32_power_alpha(
+            torch, blend_mod, *tx4._local_pixels("cpu", torch.float32))
+        amin = None
+    else:
+        d, c = packed_tiles(2, 48, 2, seed=9)
+        data, counts = torch.from_numpy(d), torch.from_numpy(c)
+        if case == "k1":
+            out = blend_mod.blend_fwd_plain(data, counts, 2, 2)
+            power_alpha = cs.f32_power_alpha(
+                torch, blend_mod, *cs.tile_pixels(torch, 2, 2, 32, "cpu"))
+            amin = None
+        else:
+            out = tx1.call_bf16_plain(data, counts, 2, 2)
+            ox, oy, lx, ly = tx1.tile_frame(2, 2, "cpu")
+            power_alpha = lambda row: tx1.power_alpha_bf16(  # noqa: E731
+                row, ox, oy, lx, ly)
+            amin = tx1.ALPHA_MIN_BF16
+        n_contrib = out[2].reshape(2, -1)
+    got = cs.blend_pair_counts(torch, blend_mod, data, counts, n_contrib,
+                               power_alpha, alpha_min=amin)
+    pa = [power_alpha(data[:, k]) for k in range(data.shape[1])]
+    power = torch.stack([p.float() for p, _ in pa], 1).numpy()
+    alpha = torch.stack([a.float() for _, a in pa], 1).numpy()
+    want = count_by_pixel(power, alpha, counts.numpy(), n_contrib.numpy(),
+                          blend_mod.ALPHA_MIN if amin is None else amin)
+    assert got == want
+    assert want["k1_applied"] == want["k2_valid"] > 0
+    assert want["k1_alpha_fail"] > 0 and want["k1_stop"] > 0
