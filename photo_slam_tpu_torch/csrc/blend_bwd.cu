@@ -21,40 +21,161 @@
 //   dL/do = dL/dalpha e^power,  dL/dpower = dL/do o,  then Bc += alpha T g.c
 // (cuda_rasterizer/backward.cu:398-557; derivation at blend.py:169-199).
 //
-// What bounds it on this card: arithmetic and the pixel reduction. Each
-// (entry, pixel) pair costs an exp, a division and ~45 FLOPs, and each entry
-// then reduces nine sums over the tile's 1024 pixels. The entry rows are
-// read once (64 B) and the gradient rows written once (64 B), a small share
-// of the time. The TPU kernel's group-vectorized suffix-product ladders,
-// T rebuilt by dividing suffix products and MXU moment matmuls worked around
-// a machine without scalar threads; here, as in the CUDA original, each
-// thread carries its 4 pixels' T, Bc, g and g_T final_T in registers and
-// walks the entries sequentially:
-//   * 256 threads per tile, 4 pixels each (pixel p = threadIdx.x + 256 j,
-//     K1's layout, so both kernels index a tile alike);
-//   * entry rows are staged through shared memory kBatch at a time, back to
-//     front;
-//   * the reduction is deterministic, with no atomics: each thread sums its
-//     4 pixels, each warp reduces by shuffles (skipped, with zero partials,
-//     when no pixel of the warp takes part in the entry), lane 0 writes a
-//     [warps][9] partial to shared memory, and after the batch one thread
-//     per row sums the partials in warp order and writes the row.
+// What bounds it on this card: arithmetic. A contributing (entry, pixel)
+// pair costs an exp, a division and ~45 operations; the rows are read once
+// and written once (64 B each), a small share of the time.
+//
+// Where the earlier design lost its time (1.74-1.76 ms on the pass-1 tiles
+// [836, 1024, 16], ~17.7x its bound, NVIDIA H100 80GB HBM3 at 700 W):
+//   * thread t owned pixels t + 256 j, so a warp held four 32 px rows spread
+//     over the whole tile and nearly every entry touched nearly every warp:
+//     88 % of the pairs walked lie outside the splat's alpha >= 1/255
+//     ellipse and each still paid the power, the exp and the tests;
+//   * a touched warp reduced its nine sums with nine 5-step shuffle trees,
+//     45 shuffles and 45 adds per entry;
+//   * batches of 64 rows left 192 threads idle while staging, and ended in
+//     a tail where 64 threads each summed 72 partials.
+// This design:
+//   * each warp owns a 16 x 8 px block of the tile, so a warp's pixels are
+//     close together; lane l = lx + 8 ly holds pixel (lx, ly) of each of the
+//     block's four 8 x 4 quadrants, slot j = quadrant j. Inputs and outputs
+//     keep their layout (pixel p = r * 32 + c); only the ownership changed;
+//   * when a batch is staged, the staging thread also computes the entry's
+//     box (cull_box): a pixel-space rectangle that holds every pixel at
+//     which this kernel's own rounding can find power <= 0 and
+//     alpha >= 1/255. A warp skips an entry, with no power, exp or shuffle,
+//     when the box misses its 16 x 8 rect or when k >= the largest
+//     n_contrib of its pixels. Every pair it skips is one the pixel loop
+//     would have rejected, so the result differs from the earlier design's
+//     only in the order of the sums;
+//   * a live warp first tests its four pixels with no branch between them,
+//     so their power and exp chains overlap; then it runs the gradient path
+//     once per slot in which some lane has a contributing pair. That path
+//     diverges, so slots are quadrants rather than 2 x 2 quads: a splat
+//     lights fewer of them, and more lanes of each;
+//   * a touched warp reduces its nine sums with a transpose butterfly
+//     (butterfly9): at each step a lane sends the half of its sums that its
+//     partner keeps, 5 + 3 + 2 + 1 + 1 = 12 shuffles, and nine lanes end
+//     holding one total each, written with one store;
+//   * a per-row byte per warp records which warps took part, and the row
+//     sum reads only those partials, in warp order: deterministic, no
+//     atomics;
+//   * batches of 128 rows: the partials [128][8][9] (+1 pad per row, so the
+//     row sums read without bank conflicts) and the staged rows and boxes
+//     take 44 KB, under the 48 KB of static shared memory. A batch of 256
+//     would need 88 KB and cap the SM at two blocks.
+// Predicted before the first timed run: 0.55-0.90 ms on the pass-1 tiles.
+// Measured by chip_smoke.py's K2 phase on an NVIDIA H100 80GB HBM3 at
+// 700 W: 0.9519 / 0.9548 ms against the earlier design's 1.7343 / 1.7515 ms
+// in the same call (PERF.md, section 6, with what the time goes to). Without
+// the box (tools/time_blend_bwd.py --knockout without-box, same card, one
+// call) it takes 1.135-1.143 ms against 0.934-0.945 ms with it.
+//
 // power and alpha are rounded exactly as in K1 (__fmul_rn / __fadd_rn, the
 // full-precision expf), so the two kernels take the same entries; the
 // remaining products may contract into FMAs.
 
 #include <cuda_runtime.h>
+#include <math_constants.h>
 
 namespace {
 
 constexpr int kTile = 32;
 constexpr int kPixels = kTile * kTile;  // 1024
 constexpr int kThreads = 256;
-constexpr int kPerThread = kPixels / kThreads;  // 4
-constexpr int kWarps = kThreads / 32;           // 8
+constexpr int kWarps = kThreads / 32;   // 8
+constexpr int kWarpW = 16;              // a warp's block: 16 x 8 px
+constexpr int kWarpH = 8;
+constexpr int kPerThread = 4;           // one pixel per 8 x 4 quadrant
 constexpr int kFeat = 16;
-constexpr int kGrad = 9;    // gradient lanes 0-8
-constexpr int kBatch = 64;  // entry rows staged and reduced per round
+constexpr int kGrad = 9;                // gradient lanes 0-8
+constexpr int kBatch = 128;             // rows staged and summed per round
+constexpr int kPartStride = kWarps * kGrad + 1;  // 73 floats per row
+
+// The box of an entry (ops/blend.py::entry_cull_boxes is its plain
+// version; the constants are shared). A pair this kernel counts as valid
+// has o e^p' >= m (1 - 3e-7), m = kAlphaMin, for its rounded power p' (expf
+// within 2 ulp, one rounded product), and p' within 4 u S of the exact
+// power of the rounded dx, dy, where S = (|a| dx^2 + |c| dy^2) / 2 +
+// |b dx dy| and u = 2^-24. So its |dx|, |dy| satisfy
+//   (1 - g)(a dx^2 + c dy^2) - 2 (1 + g)|b dx dy| <= 2 (L + e),
+// g = kCullRel >= 4 u, e = kCullAbs >= 3e-7, L = ln(o / m): an
+// ellipse in (|dx|, |dy|) when a > 0 and det' = a c (1-g)^2 - b^2 (1+g)^2 >
+// 0, whose half-widths are sqrt(2 (L + e) c (1 - g) / det') and the same
+// with a. The box widens L + e by kCullScale and the half-widths by kCullPad
+// px (the margins of ops/preprocess.py::tight_extents), computed in double.
+// An entry with o < 1/255 has an empty box (o e^p' <= o for p' <= 0); one
+// with a non-finite term, a <= 0 or det' <= kCullMinDet a c is unbounded.
+constexpr double kCullRel = 1e-6;
+constexpr double kCullAbs = 1e-6;
+constexpr double kCullScale = 1.001;
+constexpr double kCullMinDet = 1e-9;
+constexpr float kCullPad = 1.0f;
+
+// (x_lo, x_hi, y_lo, y_hi) in image pixels.
+__device__ float4 cull_box(float mx, float my, float a, float b, float c,
+                           float o) {
+  const float kAlphaMin = (float)(1.0 / 255.0);
+  const float inf = CUDART_INF_F;
+  if (!(isfinite(mx) && isfinite(my) && isfinite(a) && isfinite(b) &&
+        isfinite(c) && isfinite(o)))
+    return make_float4(-inf, inf, -inf, inf);
+  if (o < kAlphaMin) return make_float4(inf, -inf, inf, -inf);
+  const double g_lo = 1.0 - kCullRel;
+  const double g_hi = 1.0 + kCullRel;
+  const double ad = a, bd = b, cd = c;
+  const double det = ad * cd * (g_lo * g_lo) - bd * bd * (g_hi * g_hi);
+  if (!(ad > 0.0) || !(det > kCullMinDet * ad * cd))
+    return make_float4(-inf, inf, -inf, inf);
+  const double l2 =
+      2.0 * (kCullScale * (log((double)o / (double)kAlphaMin) + kCullAbs));
+  const float ex = (float)sqrt(l2 * cd * g_lo / det) + kCullPad;
+  const float ey = (float)sqrt(l2 * ad * g_lo / det) + kCullPad;
+  return make_float4(mx - ex, mx + ex, my - ey, my + ey);
+}
+
+// Lane-dependent half of a pair of sums: what a lane keeps and what it
+// sends at one butterfly step.
+__device__ __forceinline__ float exchange(float lo_v, float hi_v, bool upper,
+                                          int offset) {
+  const float keep = upper ? hi_v : lo_v;
+  const float send = upper ? lo_v : hi_v;
+  return keep + __shfl_xor_sync(0xffffffffu, send, offset);
+}
+
+// Sums v[0..8] over the warp's 32 lanes with a transpose butterfly: lanes
+// 16 apart split the nine sums 5 / 4 (plus a zero), then 3 / 2, 2 / 1,
+// 1 / 1, and the last step adds both halves of a lane pair. Sum q ends in
+// lanes 2 c and 2 c + 1 with c = 8 b4 + 4 b3 + 2 b2 + b1, q = 5 b4 + 3 b3 +
+// 2 b2 + b1 (butterfly9_sum gives each lane its q, or -1). Returns this
+// lane's total.
+__device__ __forceinline__ float butterfly9(const float (&v)[kGrad],
+                                            int lane) {
+  float w[5];
+#pragma unroll
+  for (int i = 0; i < 5; ++i)
+    w[i] = exchange(v[i], i + 5 < kGrad ? v[i + 5] : 0.0f, lane & 16, 16);
+  float x[3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+    x[i] = exchange(w[i], i + 3 < 5 ? w[i + 3] : 0.0f, lane & 8, 8);
+  float y[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+    y[i] = exchange(x[i], i + 2 < 3 ? x[i + 2] : 0.0f, lane & 4, 4);
+  float z = exchange(y[0], y[1], lane & 2, 2);
+  return z + __shfl_xor_sync(0xffffffffu, z, 1);
+}
+
+// Which of the nine sums butterfly9 leaves in this lane for it to store, or
+// -1 (odd lanes, and the slots that held the zeros).
+__device__ __forceinline__ int butterfly9_sum(int lane) {
+  const int b4 = (lane >> 4) & 1, b3 = (lane >> 3) & 1;
+  const int b2 = (lane >> 2) & 1, b1 = (lane >> 1) & 1;
+  const bool holds = !(lane & 1) && b1 < 2 - b2 && 2 * b2 + b1 < 3 - b3 &&
+                     3 * b3 + 2 * b2 + b1 < 5 - b4;
+  return holds ? 5 * b4 + 3 * b3 + 2 * b2 + b1 : -1;
+}
 
 __global__ void __launch_bounds__(kThreads)
 blend_bwd_kernel(const float* __restrict__ data, const int* __restrict__ counts,
@@ -70,7 +191,9 @@ blend_bwd_kernel(const float* __restrict__ data, const int* __restrict__ counts,
   __shared__ float2 s_xy[kBatch];
   __shared__ float4 s_conic_o[kBatch];  // a, b, c, opacity
   __shared__ float s_rgb[3][kBatch];
-  __shared__ float s_part[kBatch][kWarps][kGrad];
+  __shared__ float4 s_box[kBatch];
+  __shared__ unsigned long long s_touched[kBatch];  // byte w: warp w summed
+  __shared__ float s_part[kBatch * kPartStride];
 
   const int blk = blockIdx.x;
   const int tid = threadIdx.x;
@@ -84,14 +207,27 @@ blend_bwd_kernel(const float* __restrict__ data, const int* __restrict__ counts,
   float* out = d_data + (size_t)blk * k_max * kFeat;
   const size_t pix0 = (size_t)blk * kPixels;
 
+  // This warp's 16 x 8 block (its rect in image pixels) and this thread's
+  // pixel in each of the block's four 8 x 4 quadrants: pixel j at
+  // (cx + 8 (j & 1), cy + 4 (j >> 1)).
+  const int bx = (warp & 1) * kWarpW, by = (warp >> 1) * kWarpH;
+  const float wx0 = ox + (float)bx, wx1 = wx0 + (float)(kWarpW - 1);
+  const float wy0 = oy + (float)by, wy1 = wy0 + (float)(kWarpH - 1);
+  const int cx = bx + (lane & 7);
+  const int cy = by + (lane >> 3);
+  const int my_sum = butterfly9_sum(lane);
+
   float px[kPerThread], py[kPerThread], T[kPerThread], Bc[kPerThread];
   float gr[kPerThread], gg[kPerThread], gb[kPerThread], gtt[kPerThread];
   int nc[kPerThread];
+  int nc_max = 0;
 #pragma unroll
   for (int j = 0; j < kPerThread; ++j) {
-    const int p = tid + kThreads * j;
-    px[j] = ox + (float)(p % kTile);
-    py[j] = oy + (float)(p / kTile);
+    const int x = cx + (j & 1) * (kWarpW / 2);
+    const int y = cy + (j >> 1) * (kWarpH / 2);
+    const int p = y * kTile + x;
+    px[j] = ox + (float)x;
+    py[j] = oy + (float)y;
     T[j] = final_t[pix0 + p];
     Bc[j] = 0.0f;
     gr[j] = g_color[3 * pix0 + p];
@@ -99,7 +235,9 @@ blend_bwd_kernel(const float* __restrict__ data, const int* __restrict__ counts,
     gb[j] = g_color[3 * pix0 + 2 * kPixels + p];
     gtt[j] = g_t[pix0 + p] * T[j];
     nc[j] = n_contrib[pix0 + p];
+    nc_max = max(nc_max, nc[j]);
   }
+  nc_max = __reduce_max_sync(0xffffffffu, nc_max);
 
   // Rows past the count: exact zeros (invalid ids gather Gaussian 0, so the
   // transpose would add anything written here into its gradient).
@@ -122,75 +260,94 @@ blend_bwd_kernel(const float* __restrict__ data, const int* __restrict__ counts,
       s_rgb[0][tid] = r1.z;
       s_rgb[1][tid] = r1.w;
       s_rgb[2][tid] = rows[(size_t)k * kFeat + 8];
+      s_box[tid] = cull_box(r0.x, r0.y, r0.z, r0.w, r1.x, r1.y);
     }
     __syncthreads();
 
     for (int i = n - 1; i >= 0; --i) {
       const int k = lo + i;
-      const float2 xy = s_xy[i];
-      const float4 co = s_conic_o[i];
-      const float cr = s_rgb[0][i], cg = s_rgb[1][i], cb = s_rgb[2][i];
-      float acc[kGrad];
+      const float4 box = s_box[i];
+      // Warp-uniform: the entry reaches none of this warp's pixels.
+      bool live = k < nc_max && box.y >= wx0 && box.x <= wx1 &&
+                  box.w >= wy0 && box.z <= wy1;
+      if (live) {
+        const float2 xy = s_xy[i];
+        const float4 co = s_conic_o[i];
+        // The tests of the four pixels first, with no branch between them,
+        // so their power and exp chains overlap; most pairs stop here.
+        float ex[kPerThread], raw[kPerThread];
+        bool ok[kPerThread];
+        bool any = false;
 #pragma unroll
-      for (int q = 0; q < kGrad; ++q) acc[q] = 0.0f;
-      bool any = false;
+        for (int j = 0; j < kPerThread; ++j) {
+          const float dx = __fsub_rn(xy.x, px[j]);
+          const float dy = __fsub_rn(xy.y, py[j]);
+          const float quad = __fadd_rn(__fmul_rn(__fmul_rn(co.x, dx), dx),
+                                       __fmul_rn(__fmul_rn(co.z, dy), dy));
+          const float power = __fsub_rn(__fmul_rn(-0.5f, quad),
+                                        __fmul_rn(__fmul_rn(co.y, dx), dy));
+          ex[j] = expf(power);
+          raw[j] = __fmul_rn(co.w, ex[j]);
+          const float alpha = raw[j] > kAlphaMax ? kAlphaMax : raw[j];
+          ok[j] = k < nc[j] && power <= 0.0f && alpha >= kAlphaMin;
+          any |= ok[j];
+        }
+        live = __any_sync(0xffffffffu, any);
+        if (live) {
+          const float cr = s_rgb[0][i], cg = s_rgb[1][i], cb = s_rgb[2][i];
+          float acc[kGrad];
 #pragma unroll
-      for (int j = 0; j < kPerThread; ++j) {
-        if (k >= nc[j]) continue;
-        const float dx = __fsub_rn(xy.x, px[j]);
-        const float dy = __fsub_rn(xy.y, py[j]);
-        const float quad = __fadd_rn(__fmul_rn(__fmul_rn(co.x, dx), dx),
-                                     __fmul_rn(__fmul_rn(co.z, dy), dy));
-        const float power = __fsub_rn(__fmul_rn(-0.5f, quad),
-                                      __fmul_rn(__fmul_rn(co.y, dx), dy));
-        if (power > 0.0f) continue;
-        const float ex = expf(power);
-        const float raw = __fmul_rn(co.w, ex);
-        const float alpha = raw > kAlphaMax ? kAlphaMax : raw;
-        if (!(alpha >= kAlphaMin)) continue;
-        any = true;
-        const float om = fmaxf(1.0f - alpha, 0.01f);
-        T[j] = T[j] / om;
-        const float aT = alpha * T[j];
-        const float gc = gr[j] * cr + gg[j] * cg + gb[j] * cb;
-        const float dl_dalpha =
-            raw < kAlphaMax ? gc * T[j] - (Bc[j] + gtt[j]) / om : 0.0f;
-        Bc[j] += aT * gc;
-        const float dl_do = dl_dalpha * ex;
-        const float dl_dp = dl_do * co.w;
-        acc[0] += dl_dp * dx;
-        acc[1] += dl_dp * dy;
-        acc[2] += dl_dp * dx * dx;
-        acc[3] += dl_dp * dx * dy;
-        acc[4] += dl_dp * dy * dy;
-        acc[5] += dl_do;
-        acc[6] += aT * gr[j];
-        acc[7] += aT * gg[j];
-        acc[8] += aT * gb[j];
-      }
-      if (__any_sync(0xffffffffu, any)) {
+          for (int q = 0; q < kGrad; ++q) acc[q] = 0.0f;
 #pragma unroll
-        for (int q = 0; q < kGrad; ++q) {
-#pragma unroll
-          for (int off = 16; off > 0; off >>= 1)
-            acc[q] += __shfl_down_sync(0xffffffffu, acc[q], off);
+          for (int j = 0; j < kPerThread; ++j) {
+            if (!ok[j]) continue;
+            const float dx = __fsub_rn(xy.x, px[j]);
+            const float dy = __fsub_rn(xy.y, py[j]);
+            const float alpha = raw[j] > kAlphaMax ? kAlphaMax : raw[j];
+            const float om = fmaxf(1.0f - alpha, 0.01f);
+            T[j] = T[j] / om;
+            // Divided outside the select: a division under a branch inside
+            // the divergent pixel branch costs more than the division.
+            const float rest = (Bc[j] + gtt[j]) / om;
+            const float aT = alpha * T[j];
+            const float gc = gr[j] * cr + gg[j] * cg + gb[j] * cb;
+            const float dl_dalpha =
+                raw[j] < kAlphaMax ? gc * T[j] - rest : 0.0f;
+            Bc[j] += aT * gc;
+            const float dl_do = dl_dalpha * ex[j];
+            const float dl_dp = dl_do * co.w;
+            acc[0] += dl_dp * dx;
+            acc[1] += dl_dp * dy;
+            acc[2] += dl_dp * dx * dx;
+            acc[3] += dl_dp * dx * dy;
+            acc[4] += dl_dp * dy * dy;
+            acc[5] += dl_do;
+            acc[6] += aT * gr[j];
+            acc[7] += aT * gg[j];
+            acc[8] += aT * gb[j];
+          }
+          const float total = butterfly9(acc, lane);
+          if (my_sum >= 0)
+            s_part[i * kPartStride + warp * kGrad + my_sum] = total;
         }
       }
-      if (lane == 0) {
-#pragma unroll
-        for (int q = 0; q < kGrad; ++q) s_part[i][warp][q] = acc[q];
-      }
+      if (lane == 0)
+        reinterpret_cast<unsigned char*>(&s_touched[i])[warp] = live;
     }
     __syncthreads();
 
     if (tid < n) {
+      const unsigned long long touched = s_touched[tid];
+      const float* part = s_part + tid * kPartStride;
       float s[kGrad];
 #pragma unroll
-      for (int q = 0; q < kGrad; ++q) {
-        float v = 0.0f;
+      for (int q = 0; q < kGrad; ++q) s[q] = 0.0f;
 #pragma unroll
-        for (int w = 0; w < kWarps; ++w) v += s_part[tid][w][q];
-        s[q] = v;
+      for (int w = 0; w < kWarps; ++w) {
+        if ((touched >> (8 * w)) & 0xffu) {
+#pragma unroll
+          for (int q = 0; q < kGrad; ++q) s[q] += part[w * kGrad + q];
+        }
       }
       const float4 co = s_conic_o[tid];
       float4* row = out4 + (size_t)(lo + tid) * (kFeat / 4);

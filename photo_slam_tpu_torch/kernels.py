@@ -37,7 +37,7 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 LAUNCHERS = {
     "blend_fwd": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
     "blend_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P],
-    "window_gather": [_P, _LL, _P, _I, _I, _P, _P],
+    "window_gather": [_P, _I, _P, _P, _I, _I, _P, _P],
     # The blend experiments (photo_slam_tpu_torch/tools/).
     "blend16_fwd": [_P, _P, _I, _I, _P, _P, _P, _P],
     "blend16_bwd": [_P, _P, _P, _P, _P, _P, _I, _I, _P, _P],

@@ -28,48 +28,71 @@ TILE = 16  # tile edge in pixels (reference: cuda_rasterizer/config.h BLOCK_X/Y)
 
 
 def window_gather_plain(sorted_entries: torch.Tensor, starts: torch.Tensor,
-                        max_per_tile: int) -> torch.Tensor:
-    """[T, K] windows sorted_entries[clamp(starts[t] + j, 0, E-1)], j < K:
-    the plain version of the window-gather kernel (and of the JAX package's
-    _window_gather_xla)."""
-    idx = (starts.to(torch.int64)[:, None]
-           + torch.arange(max_per_tile, device=starts.device)[None, :])
-    idx = idx.clamp(0, sorted_entries.shape[0] - 1)
-    return sorted_entries[idx]
+                        max_per_tile: int,
+                        counts: torch.Tensor | None = None) -> torch.Tensor:
+    """[T, K] windows sorted_entries[clamp(starts[t] + j, 0, E-1)], j < K,
+    and -1 where j >= counts[t] when `counts` [T] is given: the plain
+    version of the window-gather kernel (and, without counts, of the JAX
+    package's _window_gather_xla)."""
+    j = torch.arange(max_per_tile, device=starts.device)
+    idx = (starts.to(torch.int64)[:, None] + j[None, :]).clamp(
+        0, sorted_entries.shape[0] - 1)
+    out = sorted_entries[idx]
+    if counts is None:
+        return out
+    return torch.where(j[None, :] < counts[:, None], out, -1)
 
 
 def window_gather(sorted_entries: torch.Tensor, starts: torch.Tensor,
-                  max_per_tile: int) -> torch.Tensor:
+                  max_per_tile: int,
+                  counts: torch.Tensor | None = None) -> torch.Tensor:
     """[T, K] int32 windows of the sorted entry stream, one per tile:
-    out[t, j] = sorted_entries[min(starts[t] + j, E-1)].
+    out[t, j] = sorted_entries[clamp(starts[t] + j, 0, E-1)], and -1 where
+    j >= counts[t] when `counts` [T] int32 is given.
 
     Counterpart of photo_slam_tpu/ops/binning.py::_window_gather_pallas (K3).
     On a CUDA tensor it launches csrc/window_gather.cu (or raises); on a CPU
     tensor it runs window_gather_plain. `window_gather.launches` counts
     kernel launches.
     """
-    if sorted_entries.device.type == "cpu":
-        return window_gather_plain(sorted_entries, starts, max_per_tile)
-    if sorted_entries.device.type != "cuda":
-        raise ValueError(f"window_gather: unsupported device "
-                         f"{sorted_entries.device}")
-    for name, x in (("sorted_entries", sorted_entries), ("starts", starts)):
-        if x.device != sorted_entries.device or x.dtype != torch.int32 \
-                or x.dim() != 1 or not x.is_contiguous():
-            raise ValueError(f"window_gather: {name} must be a contiguous 1-D "
-                             f"int32 tensor on {sorted_entries.device}, got "
-                             f"{x.dtype} {tuple(x.shape)} on {x.device}")
+    dev = sorted_entries.device
+    if dev.type == "cpu":
+        return window_gather_plain(sorted_entries, starts, max_per_tile,
+                                   counts)
+    if dev.type != "cuda":
+        raise ValueError(f"window_gather: unsupported device {dev}")
     num_tiles, e_total = starts.shape[0], sorted_entries.shape[0]
-    if e_total < 1 or num_tiles > 65535:
-        raise ValueError(f"window_gather: need 1 <= E and T <= 65535, got "
-                         f"E={e_total} T={num_tiles}")
-    out = torch.empty((num_tiles, max_per_tile), dtype=torch.int32,
-                      device=sorted_entries.device)
+    # Only what the kernel cannot take: its device time is ~2 us, so the
+    # host's work per call is most of its cost.
+    names = ("sorted_entries", "starts", "counts")
+    for i, x in enumerate((sorted_entries, starts) if counts is None
+                          else (sorted_entries, starts, counts)):
+        if (x.dtype != torch.int32 or x.dim() != 1 or not x.is_contiguous()
+                or x.device != dev):
+            raise ValueError(f"window_gather: {names[i]} must be a "
+                             f"contiguous 1-D int32 tensor on {dev}, got "
+                             f"{x.dtype} {tuple(x.shape)} on {x.device}")
+    if counts is not None and counts.shape[0] != num_tiles:
+        raise ValueError(f"window_gather: counts {tuple(counts.shape)} for "
+                         f"{num_tiles} tiles")
+    if not 1 <= e_total < 2 ** 31 - max_per_tile:
+        raise ValueError(f"window_gather: need 1 <= E < 2^31 - K, got "
+                         f"E={e_total} K={max_per_tile}")
+    out = sorted_entries.new_empty((num_tiles, max_per_tile))
+    # The raw handle of the device's current stream and the current device
+    # (what torch.cuda.current_stream(dev).cuda_stream and
+    # torch.cuda.current_device() return, without building a Stream object
+    # or the lazy-init check, which alone take longer than the kernel).
+    args = (sorted_entries.data_ptr(), e_total, starts.data_ptr(),
+            None if counts is None else counts.data_ptr(), num_tiles,
+            max_per_tile, out.data_ptr(),
+            torch._C._cuda_getCurrentRawStream(dev.index))
     fn = kernels.launcher("window_gather")
-    with torch.cuda.device(sorted_entries.device):
-        err = fn(sorted_entries.data_ptr(), e_total, starts.data_ptr(),
-                 num_tiles, max_per_tile, out.data_ptr(),
-                 torch.cuda.current_stream().cuda_stream)
+    if dev.index == torch._C._cuda_getDevice():
+        err = fn(*args)
+    else:
+        with torch.cuda.device(dev):
+            err = fn(*args)
     kernels.check_launch("window_gather", err)
     window_gather.launches += 1
     return out
@@ -226,10 +249,8 @@ def bin_gaussians(
         dtype=torch.int32)
     tile_counts = torch.clamp_max(counts, max_per_tile)
 
-    in_range = (torch.arange(max_per_tile, dtype=torch.int32,
-                             device=dev)[None, :] < tile_counts[:, None])
-    window = window_gather(sorted_entries, starts.contiguous(), max_per_tile)
-    tile_lists = torch.where(in_range, window, -1)
+    tile_lists = window_gather(sorted_entries, starts.contiguous(),
+                               max_per_tile, tile_counts.contiguous())
 
     return TileBinning(
         tile_lists=tile_lists,
@@ -253,8 +274,6 @@ def window_lists(binning: TileBinning, offset: int,
 
     Returns (lists [T, capacity] with -1 padding, counts [T])."""
     counts = torch.clamp(binning.raw_counts - offset, 0, capacity)
-    in_range = (torch.arange(capacity, dtype=torch.int32,
-                             device=counts.device)[None, :] < counts[:, None])
-    window = window_gather(binning.sorted_entries,
-                           (binning.starts + offset).contiguous(), capacity)
-    return torch.where(in_range, window, -1), counts
+    return window_gather(binning.sorted_entries,
+                         (binning.starts + offset).contiguous(), capacity,
+                         counts), counts

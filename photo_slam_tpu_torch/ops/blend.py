@@ -36,6 +36,21 @@ def _tile_ids_or_iota(tile_ids, num_tiles, device):
     return tile_ids.to(torch.int32)
 
 
+def pair_terms(row: torch.Tensor, px: torch.Tensor, py: torch.Tensor):
+    """(dx, dy, power, e^power, o e^power, alpha, contributes) of entry
+    rows [B, 16] at pixels px, py [B or 1, P]: each product and sum rounded
+    on its own, as the kernels round them; alpha = min(0.99, o e^power),
+    and a pair contributes where power <= 0 and alpha >= 1/255."""
+    dx = row[:, 0:1] - px
+    dy = row[:, 1:2] - py
+    power = (-0.5 * (row[:, 2:3] * dx * dx + row[:, 4:5] * dy * dy)
+             - row[:, 3:4] * dx * dy)
+    ex = torch.exp(power)
+    raw = row[:, 5:6] * ex
+    alpha = torch.clamp_max(raw, ALPHA_MAX)
+    return dx, dy, power, ex, raw, alpha, (power <= 0.0) & (alpha >= ALPHA_MIN)
+
+
 def blend_fwd_plain(data_tiles: torch.Tensor, counts: torch.Tensor,
                     tiles_x: int, num_tiles: int,
                     tile_ids: torch.Tensor | None = None):
@@ -62,12 +77,8 @@ def blend_fwd_plain(data_tiles: torch.Tensor, counts: torch.Tensor,
     for k in range(n_iter):
         row = data_tiles[:, k, :]                          # [T, 16]
         live = (k < counts)[:, None] & ~done
-        dx = row[:, 0:1] - px
-        dy = row[:, 1:2] - py
-        power = (-0.5 * (row[:, 2:3] * dx * dx + row[:, 4:5] * dy * dy)
-                 - row[:, 3:4] * dx * dy)
-        alpha = torch.clamp_max(row[:, 5:6] * torch.exp(power), ALPHA_MAX)
-        contrib = live & (power <= 0.0) & (alpha >= ALPHA_MIN)
+        alpha, pair_ok = pair_terms(row, px, py)[5:]
+        contrib = live & pair_ok
         test_t = trans * (1.0 - alpha)
         stop = contrib & (test_t < T_EPS)
         ok = contrib & ~stop
@@ -148,6 +159,47 @@ def blend_fwd(data_tiles: torch.Tensor, counts: torch.Tensor,
 blend_fwd.launches = 0
 
 
+# The box of an entry that K2 skips its warps by (csrc/blend_bwd.cu,
+# cull_box, whose comment derives it): relative and absolute slack for the
+# kernel's rounding of the power and of alpha, the margins of
+# ops/preprocess.py::tight_extents (L x 1.001, +1 px), and the smallest
+# det' / (a c) that counts as bounded.
+CULL_REL = 1e-6
+CULL_ABS = 1e-6
+CULL_SCALE = 1.001
+CULL_PAD = 1.0
+CULL_MIN_DET = 1e-9
+
+
+def entry_cull_boxes(data: torch.Tensor) -> torch.Tensor:
+    """[..., 4] float32 boxes (x_lo, x_hi, y_lo, y_hi) in image pixels of
+    packed entry rows [..., 16]: every pixel at which the blend kernels'
+    rounding can find power <= 0 and alpha >= 1/255 lies inside its entry's
+    box. The plain version of the box K2 computes when it stages a row
+    (csrc/blend_bwd.cu, cull_box), in the same steps: empty (+inf, -inf,
+    +inf, -inf) where opacity < 1/255, unbounded (-inf, +inf, -inf, +inf)
+    where a term is not finite, a <= 0 or the widened conic is (nearly)
+    singular."""
+    f = data[..., :6].to(torch.float32)
+    mx, my, a, b, c, o = f.unbind(-1)
+    finite = torch.isfinite(f).all(-1)
+    empty = finite & (o < ALPHA_MIN)
+    g_lo, g_hi = 1.0 - CULL_REL, 1.0 + CULL_REL
+    ad, bd, cd = a.double(), b.double(), c.double()
+    det = ad * cd * (g_lo * g_lo) - bd * bd * (g_hi * g_hi)
+    bounded = finite & ~empty & (ad > 0.0) & (det > CULL_MIN_DET * ad * cd)
+    amin = float(torch.tensor(ALPHA_MIN, dtype=torch.float32))
+    l2 = 2.0 * (CULL_SCALE * (torch.log(o.double() / amin) + CULL_ABS))
+    ex = torch.sqrt(l2 * cd * g_lo / det).float() + CULL_PAD
+    ey = torch.sqrt(l2 * ad * g_lo / det).float() + CULL_PAD
+    box = torch.stack([mx - ex, mx + ex, my - ey, my + ey], dim=-1)
+    inf = float("inf")
+    other = torch.where(empty[..., None],
+                        box.new_tensor([inf, -inf, inf, -inf]),
+                        box.new_tensor([-inf, inf, -inf, inf]))
+    return torch.where(bounded[..., None], box, other)
+
+
 def blend_bwd_plain(data_tiles: torch.Tensor, counts: torch.Tensor,
                     final_t: torch.Tensor, n_contrib: torch.Tensor,
                     g_color: torch.Tensor, g_t: torch.Tensor, tiles_x: int,
@@ -183,15 +235,8 @@ def blend_bwd_plain(data_tiles: torch.Tensor, counts: torch.Tensor,
     n_iter = min(k_max, int(counts.max())) if nb else 0
     for k in range(n_iter - 1, -1, -1):
         row = data_tiles[:, k, :]                          # [T, 16]
-        dx = row[:, 0:1] - px
-        dy = row[:, 1:2] - py
-        power = (-0.5 * (row[:, 2:3] * dx * dx + row[:, 4:5] * dy * dy)
-                 - row[:, 3:4] * dx * dy)
-        ex = torch.exp(power)
-        raw = row[:, 5:6] * ex
-        alpha = torch.clamp_max(raw, ALPHA_MAX)
-        valid = ((k < nc) & (k < cnt) & (power <= 0.0)
-                 & (alpha >= ALPHA_MIN))
+        dx, dy, _, ex, raw, alpha, contrib = pair_terms(row, px, py)
+        valid = (k < nc) & (k < cnt) & contrib
         om = torch.where(valid, torch.clamp_min(1.0 - alpha, 0.01), 1.0)
         trans = torch.where(valid, trans / om, trans)      # T before entry k
         a_t = torch.where(valid, alpha * trans, 0.0)

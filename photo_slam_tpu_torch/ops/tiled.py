@@ -126,12 +126,8 @@ def render_pallas(
             starts_sub = (binning.starts[sel] + offset).contiguous()
             counts_sub = torch.clamp(binning.raw_counts[sel] - offset, 0,
                                      overflow_capacity)
-            window = window_gather(binning.sorted_entries, starts_sub,
-                                   overflow_capacity)
-            in_range = (torch.arange(overflow_capacity,
-                                     device=counts_sub.device)[None]
-                        < counts_sub[:, None])
-            lists_p = torch.where(in_range, window, -1)
+            lists_p = window_gather(binning.sorted_entries, starts_sub,
+                                    overflow_capacity, counts_sub)
             data_p = entry_gather(feat, lists_p, k_dup)
             c_p, t_p, n_p = pallas_blend(data_p, counts_sub, gx, t_sub, order)
             # Scatter the subset's results back to their tiles (the JAX

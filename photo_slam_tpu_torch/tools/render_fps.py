@@ -1,0 +1,123 @@
+"""Render frames per second of the port's serving path, in repeated blocks.
+
+The room scene (300,000 Gaussians, seed 0, SH 3) viewed at 1200x680 as
+chip_smoke.py views it, rendered 1-pass (max_per_tile 1024) and 2-pass
+compact (sized from the 1-pass render's overflow, as chip_smoke.py sizes
+it), and the render's binning stage alone (bin_gaussians, which holds the
+window gather K3) on the view's preprocessed splats. After two warm-up
+calls of each, `--blocks` blocks of `--calls` calls of each, timed on
+the host clock with a synchronize at each end: the spread between blocks
+of one process shows how far the host moves a frame.
+
+The script imports `photo_slam_tpu_torch` from the path, so it times the
+checkout that PYTHONPATH names first, and can time another checkout's
+package (one with the same render API) when run by its file path:
+
+    PYTHONPATH=<checkout> python3 photo_slam_tpu_torch/tools/render_fps.py
+
+Prints one JSON line: the package's path, the card's `nvidia-smi` name and
+power limit, and the calls per second of each block for each of the three.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import time
+
+import numpy as np
+import torch
+
+import photo_slam_tpu_torch
+from photo_slam_tpu_torch.models import gaussian_model as gm
+from photo_slam_tpu_torch.ops.binning import bin_gaussians
+from photo_slam_tpu_torch.ops.camera_math import build_camera_matrices
+from photo_slam_tpu_torch.ops.preprocess import preprocess, tight_extents
+from photo_slam_tpu_torch.ops.render import RenderSettings, render
+from photo_slam_tpu_torch.tools.bench_room import room_scene
+
+N_GAUSSIANS = 300_000
+WIDTH, HEIGHT = 1200, 680
+FOVX = 1.2
+K_DUP = 6
+MAX_PER_TILE = 1024
+
+
+def ceil_to(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--blocks", type=int, default=5)
+    ap.add_argument("--calls", type=int, default=20)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise RuntimeError("render_fps needs a CUDA card")
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True,
+        timeout=60).stdout.strip().splitlines()[0]
+
+    pts, cols = room_scene(N_GAUSSIANS, 0)
+    state = gm.create_from_pcd(pts, cols, sh_degree=3, capacity=N_GAUSSIANS,
+                               device=dev)
+    scales, quats, opac = gm.activated(state.params)
+    shs = gm.sh_features(state.params)
+    cam = build_camera_matrices(np.eye(3), np.zeros(3), 0.01, 100.0, FOVX,
+                                FOVX * HEIGHT / WIDTH, device=dev)
+    tan_x = float(np.tan(FOVX / 2))
+    bg = torch.zeros(3, device=dev)
+
+    def settings(**kw):
+        return RenderSettings(width=WIDTH, height=HEIGHT, tan_fovx=tan_x,
+                              tan_fovy=tan_x * HEIGHT / WIDTH, sh_degree=3,
+                              mode="pallas", max_tiles_per_gaussian=K_DUP,
+                              max_per_tile=MAX_PER_TILE, **kw)
+
+    def do_render(s):
+        return render(state.params.xyz, scales, quats, opac, cam, s, bg,
+                      shs=shs, live_mask=state.live)
+
+    one = do_render(settings())
+    over, depth = int(one.num_overflow_tiles), int(one.max_tile_depth)
+    two = settings(
+        overflow_passes=2,
+        overflow_capacity=max(512, ceil_to((depth - MAX_PER_TILE) * 5 // 4,
+                                           128)),
+        overflow_compact=ceil_to(max(over + over // 4, 32), 8))
+    prep = preprocess(state.params.xyz, scales, quats, cam.viewmatrix,
+                      cam.full_proj, cam.cam_center, WIDTH, HEIGHT, tan_x,
+                      tan_x * HEIGHT / WIDTH, sh_degree=3, shs=shs,
+                      live_mask=state.live)
+    ext = tight_extents(prep.conics, opac, prep.radii)
+    calls = {
+        "1-pass": lambda: do_render(settings()),
+        "2-pass": lambda: do_render(two),
+        "binning": lambda: bin_gaussians(
+            prep.means2d, prep.depths, prep.radii, prep.visible, WIDTH,
+            HEIGHT, tile=32, max_tiles_per_gaussian=K_DUP,
+            max_per_tile=MAX_PER_TILE, extents=ext),
+    }
+    for fn in calls.values():
+        for _ in range(2):
+            fn()
+    fps = {what: [] for what in calls}
+    for _ in range(args.blocks):
+        for what, fn in calls.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(args.calls):
+                fn()
+            torch.cuda.synchronize()
+            fps[what].append(args.calls / (time.perf_counter() - t0))
+    print(json.dumps({"package": str(photo_slam_tpu_torch.__path__[0]),
+                      "card": smi, "calls_per_block": args.calls,
+                      "per_second": fps}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

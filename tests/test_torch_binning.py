@@ -156,3 +156,41 @@ def test_window_gather_wrapper_on_cpu_runs_plain():
     assert out.dtype == torch.int32 and out[3].tolist() == [99] * 16
     with pytest.raises(ValueError):
         tb.window_gather(se.to("meta"), starts.to("meta"), 16)
+
+
+@pytest.mark.parametrize("k", [128, 256, 1024])
+def test_window_gather_plain_with_counts_matches_jax(k):
+    """The masked form: -1 where j >= counts[t], the XLA twin elsewhere
+    (the callers' where(arange < counts, window, -1), moved into K3)."""
+    rng = np.random.RandomState(k + 1)
+    e_total = 5000
+    se = rng.randint(0, 10 ** 6, e_total).astype(np.int32)
+    starts = np.array([0, 100, 4999, 5000, 5000 + 1024, 4000, 123, 777,
+                       e_total - k, 2 * e_total], np.int32)
+    counts = np.array([0, k, k + 7, 3, k - 1, 1, 10 ** 6, k // 2, -2, 5],
+                      np.int32)
+    got = tb.window_gather_plain(torch.from_numpy(se),
+                                 torch.from_numpy(starts), k,
+                                 torch.from_numpy(counts)).numpy()
+    want = np.asarray(jnp.where(
+        jnp.arange(k)[None, :] < jnp.asarray(counts)[:, None],
+        jb._window_gather_xla(jnp.asarray(se), jnp.asarray(starts), k), -1))
+    assert got.dtype == np.int32
+    np.testing.assert_array_equal(got, want)
+    assert (got[0] == -1).all() and (got[1] != -1).all()
+
+
+def test_window_gather_wrapper_with_counts_on_cpu():
+    se = torch.arange(100, dtype=torch.int32)
+    starts = torch.tensor([0, 50, 99, 150], dtype=torch.int32)
+    counts = torch.tensor([16, 3, 0, 20], dtype=torch.int32)
+    before = tb.window_gather.launches
+    out = tb.window_gather(se, starts, 16, counts)
+    assert tb.window_gather.launches == before
+    assert out.dtype == torch.int32
+    assert out[0].tolist() == list(range(16))
+    assert out[1].tolist() == [50, 51, 52] + [-1] * 13
+    assert out[2].tolist() == [-1] * 16 and out[3].tolist() == [99] * 16
+    with pytest.raises(ValueError):
+        tb.window_gather(se.to("meta"), starts.to("meta"), 16,
+                         counts.to("meta"))

@@ -6,10 +6,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from photo_slam_tpu.ops.pallas.blend import _blend_bwd_call
 from photo_slam_tpu.ops.pallas.blend import pallas_blend as jblend
+from photo_slam_tpu_torch import kernels
 from photo_slam_tpu_torch.ops import blend as tblend
+from photo_slam_tpu_torch.tools import time_blend_bwd
 from test_torch_blend import one_torch_thread, packed_tiles  # noqa: F401
 
 
@@ -120,3 +124,107 @@ def test_nan_past_count_changes_nothing():
         tblend.blend_bwd(*(torch.zeros(s).to("meta") for s in (
             (nb, k, 16), (nb,), (nb, 8, 128), (nb, 8, 128),
             (nb, 3, 8, 128), (nb, 8, 128))), tiles_x, nb)
+
+
+AMIN_F32 = float(np.float32(tblend.ALPHA_MIN))
+ROW_KINDS = ("plain", "near_threshold", "near_singular", "negative_det",
+             "tiny", "huge", "nan")
+
+
+def cull_rows(kinds, seed):
+    """Packed rows [N, 16], one per kind: the splat's mean anywhere in a
+    few thousand px, its conic the inverse of a rotated covariance (or a
+    near-singular, indefinite or NaN one) and its opacity near 1/255."""
+    rng = np.random.RandomState(seed)
+    n = len(kinds)
+    rows = np.zeros((n, 16), np.float32)
+    rows[:, 0:2] = rng.uniform(-2000, 2000, (n, 2))
+    rows[:, 6:9] = rng.rand(n, 3)
+    for i, kind in enumerate(kinds):
+        lo, hi = {"tiny": (-3, -1), "huge": (2, 5)}.get(kind, (-1, 2))
+        sx, sy = 10.0 ** rng.uniform(lo, hi, 2)
+        th = rng.uniform(0, np.pi)
+        rot = np.array([[np.cos(th), -np.sin(th)], [np.sin(th), np.cos(th)]])
+        conic = np.linalg.inv(rot @ np.diag([sx * sx, sy * sy]) @ rot.T)
+        a, b, c = conic[0, 0], conic[0, 1], conic[1, 1]
+        if kind == "near_singular":
+            b = np.sign(b or 1.0) * np.sqrt(a * c * (1 - 10.0 ** rng.uniform(
+                -9, -3)))
+        elif kind == "negative_det":
+            b = np.sqrt(a * c) * rng.uniform(1.0, 3.0)
+        rows[i, 2:5] = a, b, c
+        near = kind in ("near_threshold", "huge", "near_singular")
+        rows[i, 5] = (AMIN_F32 * (1 + 10.0 ** rng.uniform(-8, -3)
+                                  * rng.choice([-1, 1]))
+                      if near or rng.rand() < 0.3 else rng.uniform(0.01, 1))
+        if kind == "nan":
+            rows[i, rng.randint(0, 6)] = np.nan
+    return rows
+
+
+def probe_pixels(row, rng):
+    """Integer pixels where a splat is hardest to bound: around its mean,
+    at and just past the exact ellipse's extreme points in x and in y, and
+    a spread over 1.5x its extents."""
+    mx, my, a, b, c, o = (float(x) for x in row[:6])
+    if not np.isfinite([mx, my, a, b, c, o]).all():
+        return np.stack(np.meshgrid(np.arange(-3, 4), np.arange(-3, 4)),
+                        -1).reshape(-1, 2).astype(np.float64)
+    det = a * c - b * b
+    el = np.log(max(o, 1e-30) / AMIN_F32)
+    pts = [np.stack(np.meshgrid(np.arange(-3, 4), np.arange(-3, 4)),
+                    -1).reshape(-1, 2) + np.floor([mx, my])]
+    if det > 0 and a > 0 and el > 0:
+        ex, ey = np.sqrt(2 * el * c / det), np.sqrt(2 * el * a / det)
+        ext = np.minimum([ex, ey], 1e6)
+        for s in (0.9, 0.99, 1.0, 1.01, 1.1, 1.5):
+            for sign in (-1, 1):
+                for d in (np.array([ext[0], -b / c * ext[0]]),
+                          np.array([-b / a * ext[1], ext[1]])):
+                    base = np.floor(np.array([mx, my]) + sign * s * d)
+                    pts.append(base[None] + np.stack(np.meshgrid(
+                        np.arange(-1, 3), np.arange(-1, 3)), -1).reshape(-1,
+                                                                         2))
+        pts.append(np.floor(np.array([mx, my]) + rng.uniform(
+            -1.5, 1.5, (64, 2)) * ext))
+    return np.concatenate(pts).astype(np.float64)
+
+
+@settings(max_examples=60, deadline=None, database=None)
+@given(kinds=st.lists(st.sampled_from(ROW_KINDS), min_size=1, max_size=12),
+       seed=st.integers(0, 2 ** 31 - 1))
+def test_cull_boxes_hold_every_contributing_pair(kinds, seed):
+    """Every (entry, pixel) pair that blend_bwd_plain's own f32 arithmetic
+    counts as contributing (power <= 0, alpha >= 1/255) lies inside the
+    entry's box from entry_cull_boxes, K2's warp skip test."""
+    rows = cull_rows(kinds, seed)
+    boxes = tblend.entry_cull_boxes(torch.from_numpy(rows)).numpy()
+    assert boxes.dtype == np.float32 and boxes.shape == (len(kinds), 4)
+    rng = np.random.RandomState(seed % 1000)
+    for row, box, kind in zip(rows, boxes, kinds):
+        pix = probe_pixels(row, rng).astype(np.float32)
+        px, py = (torch.from_numpy(np.ascontiguousarray(pix[None, :, i]))
+                  for i in (0, 1))
+        contrib = tblend.pair_terms(torch.from_numpy(row[None]), px, py)[-1]
+        contrib = contrib[0].numpy()
+        inside = ((box[0] <= pix[:, 0]) & (pix[:, 0] <= box[1])
+                  & (box[2] <= pix[:, 1]) & (pix[:, 1] <= box[3]))
+        assert not (contrib & ~inside).any(), (kind, row[:6], box)
+        if row[5] < AMIN_F32 and np.isfinite(row[:6]).all():
+            assert box[0] > box[1] and not contrib.any()
+        if kind == "nan" or (kind == "negative_det" and row[5] >= AMIN_F32):
+            assert np.isinf(box).all() and box[0] < box[1]
+
+
+@pytest.mark.parametrize("name", sorted(time_blend_bwd.KNOCKOUTS))
+def test_knockouts_apply_to_the_kernel_source(name):
+    """Each knockout that tools/time_blend_bwd.py times K2 against edits
+    csrc/blend_bwd.cu exactly where it says: without-box leaves the box
+    defined but never computed, and every warp's box test unbounded."""
+    source = (kernels.CSRC_DIR / "blend_bwd.cu").read_text()
+    edited = time_blend_bwd.knockout_source(source, name)
+    assert edited != source
+    if name == "without-box":
+        assert source.count("cull_box(") == 2 and edited.count(
+            "cull_box(") == 1
+        assert "s_box[i]" not in edited

@@ -2,7 +2,8 @@
 blend_pair_counts, which counts the entry-pixel pairs of each kind a
 forward (K1's loop) and a backward (K2's) evaluate, against a count made
 pixel by pixel, for K1's 32 px tiles, X4's 16 px quadrants and X1's bf16
-chain."""
+chain; and k2_cull_counts, K2's warp skips, against a count made warp by
+warp with the kernel's own thread-to-pixel map."""
 import numpy as np
 import pytest
 import torch
@@ -61,7 +62,7 @@ def test_pair_counts_match_a_count_by_pixel(case):
         n_contrib = tx4._quadrant_pixels(tx4.blend16_fwd_plain(d16c, counts,
                                                                1)[2])
         power_alpha = cs.f32_power_alpha(
-            torch, blend_mod, *tx4._local_pixels("cpu", torch.float32))
+            blend_mod, *tx4._local_pixels("cpu", torch.float32))
         amin = None
     else:
         d, c = packed_tiles(2, 48, 2, seed=9)
@@ -69,7 +70,7 @@ def test_pair_counts_match_a_count_by_pixel(case):
         if case == "k1":
             out = blend_mod.blend_fwd_plain(data, counts, 2, 2)
             power_alpha = cs.f32_power_alpha(
-                torch, blend_mod, *cs.tile_pixels(torch, 2, 2, 32, "cpu"))
+                blend_mod, *cs.tile_pixels(torch, 2, 2, 32, "cpu"))
             amin = None
         else:
             out = tx1.call_bf16_plain(data, counts, 2, 2)
@@ -88,3 +89,66 @@ def test_pair_counts_match_a_count_by_pixel(case):
     assert got == want
     assert want["k1_applied"] == want["k2_valid"] > 0
     assert want["k1_alpha_fail"] > 0 and want["k1_stop"] > 0
+
+
+def kernel_warp_of_pixel():
+    """csrc/blend_bwd.cu's map: warp w, lane l = lx + 8 ly hold pixel
+    (16 (w & 1) + lx + 8 (j & 1), 8 (w >> 1) + ly + 4 (j >> 1)) of the
+    32 x 32 tile in slot j, one per 8 x 4 quadrant of the warp's block.
+    Returns each pixel's warp and its slot."""
+    owner, slot = np.full(1024, -1), np.full(1024, -1)
+    for w in range(8):
+        for lane in range(32):
+            lx, ly = lane & 7, lane >> 3
+            for j in range(4):
+                p = ((w >> 1) * 8 + ly + 4 * (j >> 1)) * 32 + (
+                    (w & 1) * 16 + lx + 8 * (j & 1))
+                assert owner[p] == -1
+                owner[p], slot[p] = w, j
+    assert (owner >= 0).all()
+    return owner, slot
+
+
+def test_k2_cull_counts_match_a_count_by_warp():
+    tiles_x, nb, k = 2, 4, 64
+    d, c = packed_tiles(nb, k, tiles_x, seed=11)
+    # Small splats, so that the box misses most warps.
+    d[..., 2:5] *= 4.0
+    data, counts = torch.from_numpy(d), torch.from_numpy(c)
+    n_contrib = blend_mod.blend_fwd_plain(data, counts, tiles_x,
+                                          nb)[2].reshape(nb, -1)
+    ce = torch.minimum(counts, n_contrib.amax(-1)).to(torch.int32)
+    got = cs.k2_cull_counts(torch, blend_mod, data, ce, n_contrib, tiles_x)
+
+    owner, slot = kernel_warp_of_pixel()
+    px, py = (x.numpy() for x in cs.tile_pixels(torch, nb, tiles_x, 32,
+                                                "cpu"))
+    nc = n_contrib.numpy()
+    want = dict.fromkeys(got, 0)
+    for k in range(int(ce.max())):
+        row = data[:, k]
+        box = blend_mod.entry_cull_boxes(row).numpy()
+        contrib = ((k < nc) & blend_mod.pair_terms(
+            row, torch.from_numpy(px), torch.from_numpy(py))[-1].numpy())
+        for b in range(nb):
+            if k >= ce[b]:
+                continue
+            for w in range(8):
+                mine = owner == w
+                want["entry_warp_pairs"] += 1
+                x, y = px[b, mine], py[b, mine]
+                if k >= nc[b, mine].max():
+                    want["skipped_by_n_contrib"] += 1
+                elif (box[b, 1] < x.min() or box[b, 0] > x.max()
+                      or box[b, 3] < y.min() or box[b, 2] > y.max()):
+                    want["skipped_by_box"] += 1
+                else:
+                    want["contributing_path_runs"] += len(set(
+                        slot[mine & contrib[b]]))
+                    continue
+                want["contributing_in_skipped"] += int(contrib[b,
+                                                               mine].sum())
+    assert got == want
+    assert want["contributing_in_skipped"] == 0
+    assert want["skipped_by_box"] > 0 and want["skipped_by_n_contrib"] > 0
+    assert want["contributing_path_runs"] > 0
