@@ -26,7 +26,8 @@
 // and written once (64 B each), a small share of the time.
 //
 // Where the earlier design lost its time (1.74-1.76 ms on the pass-1 tiles
-// [836, 1024, 16], ~17.7x its bound, NVIDIA H100 80GB HBM3 at 700 W):
+// [836, 1024, 16], ~50x the bound of the contributing pairs and one box per
+// row, NVIDIA H100 80GB HBM3 at 700 W):
 //   * thread t owned pixels t + 256 j, so a warp held four 32 px rows spread
 //     over the whole tile and nearly every entry touched nearly every warp:
 //     88 % of the pairs walked lie outside the splat's alpha >= 1/255
@@ -41,9 +42,10 @@
 //     block's four 8 x 4 quadrants, slot j = quadrant j. Inputs and outputs
 //     keep their layout (pixel p = r * 32 + c); only the ownership changed;
 //   * when a batch is staged, the staging thread also computes the entry's
-//     box (cull_box): a pixel-space rectangle that holds every pixel at
-//     which this kernel's own rounding can find power <= 0 and
-//     alpha >= 1/255. A warp skips an entry, with no power, exp or shuffle,
+//     box (cull_box.cuh, shared with K1): a pixel-space rectangle that
+//     holds every pixel at which this kernel's own rounding can find
+//     power <= 0 and alpha >= 1/255. A warp skips an entry, with no power,
+//     exp or shuffle,
 //     when the box misses its 16 x 8 rect or when k >= the largest
 //     n_contrib of its pixels. Every pair it skips is one the pixel loop
 //     would have rejected, so the result differs from the earlier design's
@@ -68,15 +70,17 @@
 // Measured by chip_smoke.py's K2 phase on an NVIDIA H100 80GB HBM3 at
 // 700 W: 0.9519 / 0.9548 ms against the earlier design's 1.7343 / 1.7515 ms
 // in the same call (PERF.md, section 6, with what the time goes to). Without
-// the box (tools/time_blend_bwd.py --knockout without-box, same card, one
-// call) it takes 1.135-1.143 ms against 0.934-0.945 ms with it.
+// the box (tools/time_blend.py --kernel bwd --knockout without-box, same
+// card, one call) it takes 1.135-1.143 ms against 0.934-0.945 ms with it;
+// in a later call 1.094-1.099 ms against 0.944-0.952 ms.
 //
 // power and alpha are rounded exactly as in K1 (__fmul_rn / __fadd_rn, the
 // full-precision expf), so the two kernels take the same entries; the
 // remaining products may contract into FMAs.
 
 #include <cuda_runtime.h>
-#include <math_constants.h>
+
+#include "cull_box.cuh"
 
 namespace {
 
@@ -91,48 +95,6 @@ constexpr int kFeat = 16;
 constexpr int kGrad = 9;                // gradient lanes 0-8
 constexpr int kBatch = 128;             // rows staged and summed per round
 constexpr int kPartStride = kWarps * kGrad + 1;  // 73 floats per row
-
-// The box of an entry (ops/blend.py::entry_cull_boxes is its plain
-// version; the constants are shared). A pair this kernel counts as valid
-// has o e^p' >= m (1 - 3e-7), m = kAlphaMin, for its rounded power p' (expf
-// within 2 ulp, one rounded product), and p' within 4 u S of the exact
-// power of the rounded dx, dy, where S = (|a| dx^2 + |c| dy^2) / 2 +
-// |b dx dy| and u = 2^-24. So its |dx|, |dy| satisfy
-//   (1 - g)(a dx^2 + c dy^2) - 2 (1 + g)|b dx dy| <= 2 (L + e),
-// g = kCullRel >= 4 u, e = kCullAbs >= 3e-7, L = ln(o / m): an
-// ellipse in (|dx|, |dy|) when a > 0 and det' = a c (1-g)^2 - b^2 (1+g)^2 >
-// 0, whose half-widths are sqrt(2 (L + e) c (1 - g) / det') and the same
-// with a. The box widens L + e by kCullScale and the half-widths by kCullPad
-// px (the margins of ops/preprocess.py::tight_extents), computed in double.
-// An entry with o < 1/255 has an empty box (o e^p' <= o for p' <= 0); one
-// with a non-finite term, a <= 0 or det' <= kCullMinDet a c is unbounded.
-constexpr double kCullRel = 1e-6;
-constexpr double kCullAbs = 1e-6;
-constexpr double kCullScale = 1.001;
-constexpr double kCullMinDet = 1e-9;
-constexpr float kCullPad = 1.0f;
-
-// (x_lo, x_hi, y_lo, y_hi) in image pixels.
-__device__ float4 cull_box(float mx, float my, float a, float b, float c,
-                           float o) {
-  const float kAlphaMin = (float)(1.0 / 255.0);
-  const float inf = CUDART_INF_F;
-  if (!(isfinite(mx) && isfinite(my) && isfinite(a) && isfinite(b) &&
-        isfinite(c) && isfinite(o)))
-    return make_float4(-inf, inf, -inf, inf);
-  if (o < kAlphaMin) return make_float4(inf, -inf, inf, -inf);
-  const double g_lo = 1.0 - kCullRel;
-  const double g_hi = 1.0 + kCullRel;
-  const double ad = a, bd = b, cd = c;
-  const double det = ad * cd * (g_lo * g_lo) - bd * bd * (g_hi * g_hi);
-  if (!(ad > 0.0) || !(det > kCullMinDet * ad * cd))
-    return make_float4(-inf, inf, -inf, inf);
-  const double l2 =
-      2.0 * (kCullScale * (log((double)o / (double)kAlphaMin) + kCullAbs));
-  const float ex = (float)sqrt(l2 * cd * g_lo / det) + kCullPad;
-  const float ey = (float)sqrt(l2 * ad * g_lo / det) + kCullPad;
-  return make_float4(mx - ex, mx + ex, my - ey, my + ey);
-}
 
 // Lane-dependent half of a pair of sums: what a lane keeps and what it
 // sends at one butterfly step.
@@ -200,7 +162,7 @@ blend_bwd_kernel(const float* __restrict__ data, const int* __restrict__ counts,
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int count = min(max(counts[blk], 0), k_max);
-  const int tile = tile_ids[blk];
+  const int tile = tile_ids ? tile_ids[blk] : blk;
   const float ox = (float)((tile % tiles_x) * kTile);
   const float oy = (float)((tile / tiles_x) * kTile);
   const float* rows = data + (size_t)blk * k_max * kFeat;
@@ -268,8 +230,7 @@ blend_bwd_kernel(const float* __restrict__ data, const int* __restrict__ counts,
       const int k = lo + i;
       const float4 box = s_box[i];
       // Warp-uniform: the entry reaches none of this warp's pixels.
-      bool live = k < nc_max && box.y >= wx0 && box.x <= wx1 &&
-                  box.w >= wy0 && box.z <= wy1;
+      bool live = k < nc_max && !box_misses(box, wx0, wx1, wy0, wy1);
       if (live) {
         const float2 xy = s_xy[i];
         const float4 co = s_conic_o[i];
@@ -364,10 +325,11 @@ blend_bwd_kernel(const float* __restrict__ data, const int* __restrict__ counts,
 
 }  // namespace
 
-// data [B, K, 16] f32, counts [B] i32 (counts_eff), tile_ids [B] i32,
-// final_t [B, 1024] f32, n_contrib [B, 1024] i32, g_color [B, 3, 1024] f32,
-// g_t [B, 1024] f32 (all contiguous, on the device, data 16-byte aligned);
-// d_data [B, K, 16] f32 is written in full. Returns the launch's cudaError_t.
+// data [B, K, 16] f32, counts [B] i32 (counts_eff), tile_ids [B] i32 or
+// null (block b then walks tile b), final_t [B, 1024] f32, n_contrib
+// [B, 1024] i32, g_color [B, 3, 1024] f32, g_t [B, 1024] f32 (all
+// contiguous, on the device, data 16-byte aligned); d_data [B, K, 16] f32 is
+// written in full. Returns the launch's cudaError_t.
 extern "C" int blend_bwd_launch(const float* data, const int* counts,
                                 const int* tile_ids, const float* final_t,
                                 const int* n_contrib, const float* g_color,

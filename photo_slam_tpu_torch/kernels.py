@@ -6,8 +6,9 @@ compiled by nvcc for sm_90a into its own shared library under
 A plain C interface keeps PyTorch's headers out of the build: nvcc takes
 seconds per source, where a source that includes `torch/extension.h` takes
 minutes. `build()` starts one nvcc per source, all at once, and waits for
-them. Libraries are named by a hash of their source and flags, so an edit
-rebuilds and a stale library is never loaded.
+them. Libraries are named by a hash of their source, the csrc/*.cuh
+headers and the flags, so an edit rebuilds and a stale library is never
+loaded.
 
 Nothing here runs at import: this module is imported on machines without a
 CUDA toolkit, where only the plain PyTorch versions of the kernels run.
@@ -20,6 +21,8 @@ import hashlib
 import os
 import subprocess
 from pathlib import Path
+
+import torch
 
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
@@ -57,10 +60,27 @@ def _nvcc() -> str:
     return str(Path(CUDA_HOME) / "bin" / "nvcc")
 
 
+def nvcc_command(source: Path, output: Path) -> list[str]:
+    """nvcc with the kernels' flags, compiling `source` (which may include
+    the headers of csrc/ from any directory) into the library `output`."""
+    return [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o", str(output),
+            str(source)]
+
+
+def source_digest(source: bytes) -> str:
+    """Hash of a kernel source, every csrc/*.cuh header it may include and
+    the nvcc flags: a library built from them is named by it, so an edit
+    to any of them rebuilds."""
+    h = hashlib.sha256(source)
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(b"\0" + header.name.encode() + b"\0" + header.read_bytes())
+    h.update("\0".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
 def library_path(name: str) -> Path:
     src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + "\0".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+    return BUILD_DIR / f"{name}-{source_digest(src)}.so"
 
 
 def build() -> dict[str, Path]:
@@ -74,8 +94,7 @@ def build() -> dict[str, Path]:
         if not p.exists():
             tmp = p.with_suffix(f".{os.getpid()}.tmp")
             procs[n] = (subprocess.Popen(
-                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                 str(CSRC_DIR / f"{n}.cu")],
+                nvcc_command(CSRC_DIR / f"{n}.cu", tmp),
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT), tmp)
     failed = []
     for n, (proc, tmp) in procs.items():
@@ -109,3 +128,19 @@ def check_launch(name: str, err: int) -> None:
     runs, and a later synchronize would not report it)."""
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError_t {err}")
+
+
+def launch(name: str, device, *args) -> None:
+    """Call `<name>_launch(*args, stream)` on `device`'s current stream and
+    raise on a CUDA error. The raw stream handle and the current device are
+    read without building a Stream object or running the lazy-init check,
+    and a device guard is entered only when `device` is not the current
+    device: for a kernel of a few microseconds these cost more than it."""
+    fn = launcher(name)
+    args = (*args, torch._C._cuda_getCurrentRawStream(device.index))
+    if device.index == torch._C._cuda_getDevice():
+        err = fn(*args)
+    else:
+        with torch.cuda.device(device):
+            err = fn(*args)
+    check_launch(name, err)

@@ -79,21 +79,10 @@ def window_gather(sorted_entries: torch.Tensor, starts: torch.Tensor,
         raise ValueError(f"window_gather: need 1 <= E < 2^31 - K, got "
                          f"E={e_total} K={max_per_tile}")
     out = sorted_entries.new_empty((num_tiles, max_per_tile))
-    # The raw handle of the device's current stream and the current device
-    # (what torch.cuda.current_stream(dev).cuda_stream and
-    # torch.cuda.current_device() return, without building a Stream object
-    # or the lazy-init check, which alone take longer than the kernel).
-    args = (sorted_entries.data_ptr(), e_total, starts.data_ptr(),
-            None if counts is None else counts.data_ptr(), num_tiles,
-            max_per_tile, out.data_ptr(),
-            torch._C._cuda_getCurrentRawStream(dev.index))
-    fn = kernels.launcher("window_gather")
-    if dev.index == torch._C._cuda_getDevice():
-        err = fn(*args)
-    else:
-        with torch.cuda.device(dev):
-            err = fn(*args)
-    kernels.check_launch("window_gather", err)
+    kernels.launch("window_gather", dev, sorted_entries.data_ptr(), e_total,
+                   starts.data_ptr(),
+                   None if counts is None else counts.data_ptr(), num_tiles,
+                   max_per_tile, out.data_ptr())
     window_gather.launches += 1
     return out
 

@@ -115,6 +115,19 @@ def _check_data(who, data_tiles, num_tiles):
             f"{tuple(data_tiles.shape)}")
 
 
+def _check_inputs(who, data_tiles, num_tiles, **tensors):
+    """Raise on what the kernels cannot take: data_tiles (_check_data), or
+    a tensor of `tensors` ({name: (tensor or None, dtype, shape)}) that is
+    not a contiguous one of its dtype and shape on data_tiles' device.
+    Returns (device, T, K)."""
+    _check_data(who, data_tiles, num_tiles)
+    dev = data_tiles.device
+    for name, (x, dtype, shape) in tensors.items():
+        if x is not None:
+            _check_tensor(who, name, x, dev, dtype, shape)
+    return dev, data_tiles.shape[0], data_tiles.shape[1]
+
+
 def blend_fwd(data_tiles: torch.Tensor, counts: torch.Tensor,
               tiles_x: int, num_tiles: int,
               tile_ids: torch.Tensor | None = None):
@@ -123,9 +136,10 @@ def blend_fwd(data_tiles: torch.Tensor, counts: torch.Tensor,
 
     data_tiles [T, K, 16] float32, counts [T] int32 valid entries per tile
     (depth-sorted prefixes), tiles_x tiles per image row, num_tiles = T; with
-    `tile_ids` block i rasterizes image tile tile_ids[i] (the compact
-    overflow continuation). Returns (color [T, 3, 8, 128], final_T
-    [T, 8, 128], n_contrib [T, 8, 128]); the background is the caller's.
+    `tile_ids` [T] int32 block i rasterizes image tile tile_ids[i] (the
+    compact overflow continuation), without it tile i. Returns (color
+    [T, 3, 8, 128], final_T [T, 8, 128], n_contrib [T, 8, 128]); the
+    background is the caller's.
 
     On a CUDA tensor it launches csrc/blend_fwd.cu (or raises); on a CPU
     tensor it runs blend_fwd_plain. `blend_fwd.launches` counts kernel
@@ -134,24 +148,18 @@ def blend_fwd(data_tiles: torch.Tensor, counts: torch.Tensor,
     if data_tiles.device.type == "cpu":
         return blend_fwd_plain(data_tiles, counts, tiles_x, num_tiles,
                                tile_ids)
-    _check_data("blend_fwd", data_tiles, num_tiles)
-    dev = data_tiles.device
-    ids = _tile_ids_or_iota(tile_ids, num_tiles, dev).contiguous()
-    nb, k_max = data_tiles.shape[0], data_tiles.shape[1]
-    for name, x in (("counts", counts), ("tile_ids", ids)):
-        _check_tensor("blend_fwd", name, x, dev, torch.int32, (nb,))
-    color = torch.empty((nb, 3, PIX_SUB, PIX_LANE), dtype=torch.float32,
-                        device=dev)
-    final_t = torch.empty((nb, PIX_SUB, PIX_LANE), dtype=torch.float32,
-                          device=dev)
-    n_contrib = torch.empty((nb, PIX_SUB, PIX_LANE), dtype=torch.int32,
-                            device=dev)
-    fn = kernels.launcher("blend_fwd")
-    with torch.cuda.device(dev):
-        err = fn(data_tiles.data_ptr(), counts.data_ptr(), ids.data_ptr(),
-                 nb, k_max, tiles_x, color.data_ptr(), final_t.data_ptr(),
-                 n_contrib.data_ptr(), torch.cuda.current_stream().cuda_stream)
-    kernels.check_launch("blend_fwd", err)
+    dev, nb, k_max = _check_inputs(
+        "blend_fwd", data_tiles, num_tiles,
+        counts=(counts, torch.int32, (num_tiles,)),
+        tile_ids=(tile_ids, torch.int32, (num_tiles,)))
+    color = data_tiles.new_empty((nb, 3, PIX_SUB, PIX_LANE))
+    final_t = data_tiles.new_empty((nb, PIX_SUB, PIX_LANE))
+    n_contrib = counts.new_empty((nb, PIX_SUB, PIX_LANE))
+    # No tile_ids: a null pointer, which the kernel reads as the identity.
+    kernels.launch("blend_fwd", dev, data_tiles.data_ptr(), counts.data_ptr(),
+                   None if tile_ids is None else tile_ids.data_ptr(), nb,
+                   k_max, tiles_x, color.data_ptr(), final_t.data_ptr(),
+                   n_contrib.data_ptr())
     blend_fwd.launches += 1
     return color, final_t, n_contrib
 
@@ -159,8 +167,8 @@ def blend_fwd(data_tiles: torch.Tensor, counts: torch.Tensor,
 blend_fwd.launches = 0
 
 
-# The box of an entry that K2 skips its warps by (csrc/blend_bwd.cu,
-# cull_box, whose comment derives it): relative and absolute slack for the
+# The box of an entry that K1 and K2 skip their warps by (csrc/cull_box.cuh,
+# whose comment derives it): relative and absolute slack for the
 # kernel's rounding of the power and of alpha, the margins of
 # ops/preprocess.py::tight_extents (L x 1.001, +1 px), and the smallest
 # det' / (a c) that counts as bounded.
@@ -175,8 +183,8 @@ def entry_cull_boxes(data: torch.Tensor) -> torch.Tensor:
     """[..., 4] float32 boxes (x_lo, x_hi, y_lo, y_hi) in image pixels of
     packed entry rows [..., 16]: every pixel at which the blend kernels'
     rounding can find power <= 0 and alpha >= 1/255 lies inside its entry's
-    box. The plain version of the box K2 computes when it stages a row
-    (csrc/blend_bwd.cu, cull_box), in the same steps: empty (+inf, -inf,
+    box. The plain version of the box K1 and K2 compute when they stage a
+    row (csrc/cull_box.cuh), in the same steps: empty (+inf, -inf,
     +inf, -inf) where opacity < 1/255, unbounded (-inf, +inf, -inf, +inf)
     where a term is not finite, a <= 0 or the widened conic is (nearly)
     singular."""
@@ -280,27 +288,21 @@ def blend_bwd(data_tiles: torch.Tensor, counts: torch.Tensor,
     if data_tiles.device.type == "cpu":
         return blend_bwd_plain(data_tiles, counts, final_t, n_contrib,
                                g_color, g_t, tiles_x, num_tiles, tile_ids)
-    _check_data("blend_bwd", data_tiles, num_tiles)
-    dev = data_tiles.device
-    ids = _tile_ids_or_iota(tile_ids, num_tiles, dev).contiguous()
-    nb, k_max = data_tiles.shape[0], data_tiles.shape[1]
-    pix = (nb, PIX_SUB, PIX_LANE)
-    for name, x, dtype, shape in (
-            ("counts", counts, torch.int32, (nb,)),
-            ("tile_ids", ids, torch.int32, (nb,)),
-            ("final_t", final_t, torch.float32, pix),
-            ("n_contrib", n_contrib, torch.int32, pix),
-            ("g_color", g_color, torch.float32, (nb, 3, PIX_SUB, PIX_LANE)),
-            ("g_t", g_t, torch.float32, pix)):
-        _check_tensor("blend_bwd", name, x, dev, dtype, shape)
+    pix = (num_tiles, PIX_SUB, PIX_LANE)
+    dev, nb, k_max = _check_inputs(
+        "blend_bwd", data_tiles, num_tiles,
+        counts=(counts, torch.int32, (num_tiles,)),
+        tile_ids=(tile_ids, torch.int32, (num_tiles,)),
+        final_t=(final_t, torch.float32, pix),
+        n_contrib=(n_contrib, torch.int32, pix),
+        g_color=(g_color, torch.float32, (num_tiles, 3, PIX_SUB, PIX_LANE)),
+        g_t=(g_t, torch.float32, pix))
     d_data = torch.empty_like(data_tiles)
-    fn = kernels.launcher("blend_bwd")
-    with torch.cuda.device(dev):
-        err = fn(data_tiles.data_ptr(), counts.data_ptr(), ids.data_ptr(),
-                 final_t.data_ptr(), n_contrib.data_ptr(), g_color.data_ptr(),
-                 g_t.data_ptr(), nb, k_max, tiles_x, d_data.data_ptr(),
-                 torch.cuda.current_stream().cuda_stream)
-    kernels.check_launch("blend_bwd", err)
+    kernels.launch("blend_bwd", dev, data_tiles.data_ptr(), counts.data_ptr(),
+                   None if tile_ids is None else tile_ids.data_ptr(),
+                   final_t.data_ptr(), n_contrib.data_ptr(),
+                   g_color.data_ptr(), g_t.data_ptr(), nb, k_max, tiles_x,
+                   d_data.data_ptr())
     blend_bwd.launches += 1
     return d_data
 

@@ -83,6 +83,14 @@ def room_view(n: int = N_GAUSSIANS, *, device, width: int = WIDTH,
     pts, cols = room_scene(n)
     state = gm.create_from_pcd(pts, cols, sh_degree=3, capacity=n,
                                device=device)
+    return map_view(state, device=device, width=width, height=height,
+                    fovx=fovx)
+
+
+def map_view(state: gm.GaussianState, *, device, width: int = WIDTH,
+             height: int = HEIGHT, fovx: float = FOVX) -> RoomView:
+    """An SH-3 map viewed from the identity pose and preprocessed on
+    `device`."""
     cam = build_camera_matrices(np.eye(3), np.zeros(3), 0.01, 100.0, fovx,
                                 fovx * height / width, device=device)
     sc, qu, op = gm.activated(state.params)

@@ -1,22 +1,30 @@
-"""Render frames per second of the port's serving path, in repeated blocks.
+"""Render frames and train steps per second of the port, in repeated blocks.
 
 The room scene (300,000 Gaussians, seed 0, SH 3) viewed at 1200x680 as
 chip_smoke.py views it, rendered 1-pass (max_per_tile 1024) and 2-pass
 compact (sized from the 1-pass render's overflow, as chip_smoke.py sizes
-it), and the render's binning stage alone (bin_gaussians, which holds the
-window gather K3) on the view's preprocessed splats. After two warm-up
-calls of each, `--blocks` blocks of `--calls` calls of each, timed on
-the host clock with a synchronize at each end: the spread between blocks
-of one process shows how far the host moves a frame.
+it), the render's binning stage alone (bin_gaussians, which holds the
+window gather K3) on the view's preprocessed splats, and the train step
+(mapper/trainer.py::train_step on a copy of the map: the 1-pass render,
+the masked L1 + SSIM loss against a seeded random ground truth, lambda 0.2,
+the backward through K2 and Adam at bench.py's learning rates, as
+chip_smoke.py drives it). After two warm-up calls of each, `--blocks`
+blocks of `--calls` calls of each, timed on the host clock with a
+synchronize at each end: the spread between blocks of one process shows
+how far the host moves a frame or a step. Beside them, the blend wrappers
+alone (blend_fwd for K1, blend_bwd for K2) on 8 empty tiles of
+[8, 1024, 16], where the device has next to nothing to do, in blocks of
+200 calls: their calls per second are the host's cost per call.
 
 The script imports `photo_slam_tpu_torch` from the path, so it times the
 checkout that PYTHONPATH names first, and can time another checkout's
-package (one with the same render API) when run by its file path:
+package (one with the same render and train_step API) when run by its
+file path:
 
     PYTHONPATH=<checkout> python3 photo_slam_tpu_torch/tools/render_fps.py
 
 Prints one JSON line: the package's path, the card's `nvidia-smi` name and
-power limit, and the calls per second of each block for each of the three.
+power limit, and the calls per second of each block for each of them.
 """
 from __future__ import annotations
 
@@ -29,8 +37,11 @@ import numpy as np
 import torch
 
 import photo_slam_tpu_torch
+from photo_slam_tpu_torch.mapper.trainer import train_step
 from photo_slam_tpu_torch.models import gaussian_model as gm
+from photo_slam_tpu_torch.models import optimizer as optim
 from photo_slam_tpu_torch.ops.binning import bin_gaussians
+from photo_slam_tpu_torch.ops.blend import blend_bwd, blend_fwd
 from photo_slam_tpu_torch.ops.camera_math import build_camera_matrices
 from photo_slam_tpu_torch.ops.preprocess import preprocess, tight_extents
 from photo_slam_tpu_torch.ops.render import RenderSettings, render
@@ -41,6 +52,9 @@ WIDTH, HEIGHT = 1200, 680
 FOVX = 1.2
 K_DUP = 6
 MAX_PER_TILE = 1024
+WRAPPER_CALLS = 200   # calls per block of a blend wrapper alone
+LAMBDA_DSSIM = 0.2
+TRAIN_LRS = (1.6e-4, 2.5e-3, 0.05, 5e-3, 1e-3)   # bench.py:366
 
 
 def ceil_to(x: int, m: int) -> int:
@@ -93,28 +107,52 @@ def main(argv=None) -> int:
                       tan_x * HEIGHT / WIDTH, sh_degree=3, shs=shs,
                       live_mask=state.live)
     ext = tight_extents(prep.conics, opac, prep.radii)
-    calls = {
-        "1-pass": lambda: do_render(settings()),
-        "2-pass": lambda: do_render(two),
-        "binning": lambda: bin_gaussians(
+    nb = 8
+    data = torch.zeros((nb, MAX_PER_TILE, 16), device=dev)
+    empty = torch.zeros(nb, dtype=torch.int32, device=dev)
+    color, final_t, n_contrib = blend_fwd(data, empty, 4, nb)
+    g_color, g_t = torch.zeros_like(color), torch.zeros_like(final_t)
+    train = {"state": gm.create_from_pcd(pts, cols, sh_degree=3,
+                                         capacity=N_GAUSSIANS, device=dev)}
+    train["opt"] = optim.init_adam(train["state"].params)
+    gt = torch.as_tensor(np.random.RandomState(0).rand(3, HEIGHT, WIDTH)
+                         .astype(np.float32), device=dev)
+    mask = torch.ones((HEIGHT, WIDTH), device=dev)
+    lrs = optim.LearningRates.create(*TRAIN_LRS)
+
+    def do_step():
+        train["state"], train["opt"], _ = train_step(
+            train["state"], train["opt"], cam, gt, mask, lrs, bg,
+            LAMBDA_DSSIM, settings())
+    calls = {  # what: (fn, calls per block)
+        "1-pass": (lambda: do_render(settings()), args.calls),
+        "2-pass": (lambda: do_render(two), args.calls),
+        "binning": (lambda: bin_gaussians(
             prep.means2d, prep.depths, prep.radii, prep.visible, WIDTH,
             HEIGHT, tile=32, max_tiles_per_gaussian=K_DUP,
-            max_per_tile=MAX_PER_TILE, extents=ext),
+            max_per_tile=MAX_PER_TILE, extents=ext), args.calls),
+        "blend_fwd wrapper": (lambda: blend_fwd(data, empty, 4, nb),
+                              WRAPPER_CALLS),
+        "blend_bwd wrapper": (lambda: blend_bwd(
+            data, empty, final_t, n_contrib, g_color, g_t, 4, nb),
+            WRAPPER_CALLS),
+        "train step": (do_step, args.calls),
     }
-    for fn in calls.values():
+    for fn, _ in calls.values():
         for _ in range(2):
             fn()
     fps = {what: [] for what in calls}
     for _ in range(args.blocks):
-        for what, fn in calls.items():
+        for what, (fn, n) in calls.items():
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            for _ in range(args.calls):
+            for _ in range(n):
                 fn()
             torch.cuda.synchronize()
-            fps[what].append(args.calls / (time.perf_counter() - t0))
+            fps[what].append(n / (time.perf_counter() - t0))
     print(json.dumps({"package": str(photo_slam_tpu_torch.__path__[0]),
-                      "card": smi, "calls_per_block": args.calls,
+                      "card": smi, "calls_per_block": {
+                          what: n for what, (_, n) in calls.items()},
                       "per_second": fps}), flush=True)
     return 0
 

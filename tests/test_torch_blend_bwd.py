@@ -1,6 +1,8 @@
 """K2's plain version (photo_slam_tpu_torch/ops/blend.py::blend_bwd_plain)
 and the differentiable pallas_blend against the JAX package's blend
-backward, run interpreted on the CPU, on identical packed tiles."""
+backward, run interpreted on the CPU, on identical packed tiles; the box
+that K1 and K2 skip their warps by (entry_cull_boxes), the knockouts of
+tools/time_blend.py, and the hash that names the kernels' libraries."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -13,7 +15,7 @@ from photo_slam_tpu.ops.pallas.blend import _blend_bwd_call
 from photo_slam_tpu.ops.pallas.blend import pallas_blend as jblend
 from photo_slam_tpu_torch import kernels
 from photo_slam_tpu_torch.ops import blend as tblend
-from photo_slam_tpu_torch.tools import time_blend_bwd
+from photo_slam_tpu_torch.tools import time_blend
 from test_torch_blend import one_torch_thread, packed_tiles  # noqa: F401
 
 
@@ -216,15 +218,54 @@ def test_cull_boxes_hold_every_contributing_pair(kinds, seed):
             assert np.isinf(box).all() and box[0] < box[1]
 
 
-@pytest.mark.parametrize("name", sorted(time_blend_bwd.KNOCKOUTS))
-def test_knockouts_apply_to_the_kernel_source(name):
-    """Each knockout that tools/time_blend_bwd.py times K2 against edits
-    csrc/blend_bwd.cu exactly where it says: without-box leaves the box
-    defined but never computed, and every warp's box test unbounded."""
-    source = (kernels.CSRC_DIR / "blend_bwd.cu").read_text()
-    edited = time_blend_bwd.knockout_source(source, name)
+@pytest.mark.parametrize("kernel,name", [
+    (kernel, name) for kernel, names in sorted(time_blend.KNOCKOUTS.items())
+    for name in sorted(names)])
+def test_knockouts_apply_to_the_kernel_source(kernel, name):
+    """Each knockout that tools/time_blend.py times K1 or K2 against edits
+    csrc/blend_<kernel>.cu exactly where it says: without-box leaves the
+    shared box included but never computed, and every warp's box test
+    unbounded; block-stop makes the warp stop never fire, at all three of
+    its tests (after staging, after each live entry, and its definition);
+    whole-tile launches one 256-thread block per tile in place of two
+    128-thread blocks."""
+    source = (kernels.CSRC_DIR / f"blend_{kernel}.cu").read_text()
+    edited = time_blend.knockout_source(source, kernel, name)
     assert edited != source
+    assert '#include "cull_box.cuh"' in edited
     if name == "without-box":
-        assert source.count("cull_box(") == 2 and edited.count(
-            "cull_box(") == 1
+        assert source.count("cull_box(") == 1 and "cull_box(" not in edited
         assert "s_box[i]" not in edited
+    elif name == "block-stop":
+        assert "__all_sync(" in source and "__all_sync(" not in edited
+        assert edited.count("warp_stopped(") == 3
+        assert "__syncthreads_count" in edited
+    else:
+        assert name == "whole-tile"
+        assert "kThreads = 128" in source and "kHalves = 2" in source
+        assert "kThreads = 256" in edited and "kHalves = 1" in edited
+        assert "<<<kHalves * num_blocks, kThreads" in edited
+        assert "__launch_bounds__(kThreads, kMinBlocks)" in edited
+
+
+def test_library_path_hashes_the_headers(tmp_path, monkeypatch):
+    """A kernel's library is named by its source, every csrc/*.cuh header
+    and the flags: an edit to a shared header builds a new library, and an
+    unchanged tree finds the same one."""
+    for f in kernels.CSRC_DIR.iterdir():
+        (tmp_path / f.name).write_bytes(f.read_bytes())
+    monkeypatch.setattr(kernels, "CSRC_DIR", tmp_path)
+    first = {n: kernels.library_path(n) for n in ("blend_fwd", "blend_bwd")}
+    assert kernels.library_path("blend_fwd") == first["blend_fwd"]
+    header = tmp_path / "cull_box.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    edited = {n: kernels.library_path(n) for n in first}
+    assert all(edited[n] != first[n] for n in first)
+    (tmp_path / "another.cuh").write_text("#pragma once\n")
+    assert kernels.library_path("blend_fwd") not in (first["blend_fwd"],
+                                                     edited["blend_fwd"])
+    # Every build finds the headers, wherever its source was written.
+    monkeypatch.setattr(kernels, "_nvcc", lambda: "nvcc")
+    assert kernels.nvcc_command(tmp_path / "v.cu", tmp_path / "v.so") == [
+        "nvcc", *kernels.NVCC_FLAGS, "-I", str(tmp_path), "-o",
+        str(tmp_path / "v.so"), str(tmp_path / "v.cu")]

@@ -2,14 +2,16 @@
 blend_pair_counts, which counts the entry-pixel pairs of each kind a
 forward (K1's loop) and a backward (K2's) evaluate, against a count made
 pixel by pixel, for K1's 32 px tiles, X4's 16 px quadrants and X1's bf16
-chain; and k2_cull_counts, K2's warp skips, against a count made warp by
-warp with the kernel's own thread-to-pixel map."""
+chain; and k1_cull_counts and k2_cull_counts, K1's and K2's warp skips,
+against a count made warp by warp with the kernels' own thread-to-pixel
+map, as is tools/time_blend.py's share of stopping pixels and warps."""
 import numpy as np
 import pytest
 import torch
 
 import chip_smoke as cs
 from photo_slam_tpu_torch.ops import blend as blend_mod
+from photo_slam_tpu_torch.tools import bench_room, time_blend
 from photo_slam_tpu_torch.tools import exp_blend16 as tx4
 from photo_slam_tpu_torch.tools import exp_blend_bf16 as tx1
 from test_torch_blend import one_torch_thread, packed_tiles  # noqa: F401
@@ -107,6 +109,92 @@ def kernel_warp_of_pixel():
                 owner[p], slot[p] = w, j
     assert (owner >= 0).all()
     return owner, slot
+
+
+def stop_index(alpha, ok, counts):
+    """Per tile and pixel, the entry at which blend_fwd_plain's loop stops
+    the pixel (the first contributing one whose T (1 - alpha) < 1e-4), or
+    the count when it never stops, walking each pixel on its own: alpha, ok
+    [B, K, P] numpy."""
+    nb, _, npix = alpha.shape
+    stop = np.array([[counts[b]] * npix for b in range(nb)])
+    for b in range(nb):
+        for p in range(npix):
+            trans = np.float32(1.0)
+            for k in range(counts[b]):
+                if ok[b, k, p]:
+                    test_t = trans * (np.float32(1.0) - alpha[b, k, p])
+                    if test_t < blend_mod.T_EPS:
+                        stop[b, p] = k
+                        break
+                    trans = test_t
+    return stop
+
+
+def test_k1_cull_counts_match_a_count_by_warp():
+    tiles_x, nb, k = 2, 4, 96
+    d, c = packed_tiles(nb, k, tiles_x, seed=12)
+    # Small splats in tiles 0 and 2, so that the box misses most warps;
+    # wide ones in tiles 1 and 3, so that whole warps stop.
+    d[0::2, :, 2:5] *= 4.0
+    d[1::2, :, 5] = np.maximum(d[1::2, :, 5], 0.9)
+    data, counts = torch.from_numpy(d), torch.from_numpy(c)
+    got = cs.k1_cull_counts(torch, blend_mod, data, counts, tiles_x)
+
+    owner, _ = kernel_warp_of_pixel()
+    px, py = cs.tile_pixels(torch, nb, tiles_x, 32, "cpu")
+    terms = [blend_mod.pair_terms(data[:, j], px, py) for j in range(k)]
+    alpha = torch.stack([t[5] for t in terms], 1).numpy()
+    ok = torch.stack([t[6] for t in terms], 1).numpy()
+    stop = stop_index(alpha, ok, c)
+    px, py = px.numpy(), py.numpy()
+    want = dict.fromkeys(got, 0)
+    for j in range(int(c.max())):
+        box = blend_mod.entry_cull_boxes(data[:, j]).numpy()
+        for b in range(nb):
+            if j >= c[b]:
+                continue
+            for w in range(8):
+                mine = owner == w
+                want["entry_warp_pairs"] += 1
+                x, y = px[b, mine], py[b, mine]
+                if (stop[b, mine] < j).all():
+                    want["skipped_by_warp_stop"] += 1
+                elif (box[b, 1] < x.min() or box[b, 0] > x.max()
+                      or box[b, 3] < y.min() or box[b, 2] > y.max()):
+                    want["skipped_by_box"] += 1
+                else:
+                    continue
+                # Applied or stopping: contributing, at or before the stop.
+                want["contributing_in_skipped"] += int(
+                    (ok[b, j, mine] & (j <= stop[b, mine])).sum())
+    assert got == want
+    assert want["contributing_in_skipped"] == 0
+    assert want["skipped_by_box"] > 0 and want["skipped_by_warp_stop"] > 0
+
+
+def test_stop_shares_match_a_count_by_pixel():
+    """tools/time_blend.py's share of stopping pixels and of K1's warp
+    blocks whose pixels all stop, against stop_index's walk and the
+    kernel's thread map."""
+    tiles_x, nb, k = 2, 4, 96
+    d, c = packed_tiles(nb, k, tiles_x, seed=12)
+    d[1::2, :, 5] = np.maximum(d[1::2, :, 5], 0.9)
+    data, counts = torch.from_numpy(d), torch.from_numpy(c)
+    tiles = bench_room.Tiles32(binning=None, data=data, counts=counts,
+                               tiles_x=tiles_x, tiles_y=nb // tiles_x)
+    got = time_blend.stop_shares(tiles)
+
+    owner, _ = kernel_warp_of_pixel()
+    px, py = cs.tile_pixels(torch, nb, tiles_x, 32, "cpu")
+    terms = [blend_mod.pair_terms(data[:, j], px, py) for j in range(k)]
+    alpha = torch.stack([t[5] for t in terms], 1).numpy()
+    ok = torch.stack([t[6] for t in terms], 1).numpy()
+    stopped = stop_index(alpha, ok, c) < c[:, None]
+    warps = [[stopped[b, owner == w].all() for w in range(8)]
+             for b in range(nb)]
+    assert got == pytest.approx((stopped.mean(), np.mean(warps)), abs=1e-7)
+    assert 0 < got[1] < got[0] < 1
 
 
 def test_k2_cull_counts_match_a_count_by_warp():
