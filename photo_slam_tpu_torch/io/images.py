@@ -4,7 +4,7 @@ Host-side replacement for the reference's cv::imread + tensor_utils converters
 (reference: include/tensor_utils.h:30-196). Uses OpenCV when present (fast
 path, matches the reference's BGR->RGB handling), falls back to PIL; both are
 optional so the core framework stays importable without them.
-The image half of the JAX package's photo_slam_tpu/io/images.py, unchanged.
+photo_slam_tpu/io/images.py, copied.
 """
 from __future__ import annotations
 
@@ -36,6 +36,22 @@ def load_image_chw(path) -> np.ndarray:
     else:  # pragma: no cover
         raise RuntimeError("no image backend available (need cv2 or PIL)")
     return np.transpose(img.astype(np.float32) / 255.0, (2, 0, 1))
+
+
+def load_depth(path, depth_scale: float = 1.0) -> np.ndarray:
+    """Depth image as [H, W] float32 (meters after dividing by depth_scale)."""
+    path = str(path)
+    if cv2 is not None:
+        d = cv2.imread(path, cv2.IMREAD_UNCHANGED)
+        if d is None:
+            raise FileNotFoundError(path)
+    elif Image is not None:
+        d = np.asarray(Image.open(path))
+    else:  # pragma: no cover
+        raise RuntimeError("no image backend available (need cv2 or PIL)")
+    if d.ndim == 3:
+        d = d[..., 0]
+    return d.astype(np.float32) / depth_scale
 
 
 def save_image_chw(path, img_chw: np.ndarray) -> None:

@@ -134,8 +134,8 @@ class TrainerMetrics:
 
 
 class GaussianTrainer:
-    """Owns the map state on one device and runs training iterations (the
-    offline trainColmap path; the online mapper will drive it too).
+    """Owns the map state on one device and runs training iterations, for
+    the offline trainColmap path and the online mapper (mapper/mapper.py).
 
     `device` is where the map, the ground-truth cache and the camera
     matrices live; `generator` (a torch.Generator on that device, seeded
@@ -160,6 +160,9 @@ class GaussianTrainer:
         self.bg_color = torch.full((3,), 1.0 if cfg.model.white_background
                                    else 0.0, device=self.device)
         self.metrics = TrainerMetrics()
+        # Online mode: per-keyframe use counts drive the position LR
+        # schedule (reference: src/gaussian_mapper.cpp:661-669).
+        self.online_lr = False
         # Ground truth on the device, LRU-bounded by bytes (keyframes are
         # sampled many times); masks are tiny and cached per (camera, size).
         self._gt_cache: "dict[tuple, torch.Tensor]" = {}
@@ -192,6 +195,11 @@ class GaussianTrainer:
                 np.float32)).to(self.device)
             self._mask_cache[key] = hit
         return hit
+
+    def drop_keyframe_cache(self, fid: int) -> None:
+        """Release the cached device images of a culled keyframe."""
+        for key in [k for k in self._gt_cache if k[0] == fid]:
+            self._gt_cache_bytes -= self._gt_cache.pop(key).nbytes
 
     # -- state management --------------------------------------------------
 
@@ -266,11 +274,16 @@ class GaussianTrainer:
 
     # -- LR schedule ---------------------------------------------------------
 
-    def _current_lrs(self) -> optim.LearningRates:
-        """Offline schedule: the position LR follows the iteration count
-        (the online mapper's per-keyframe schedule comes with that slice)."""
+    def _current_lrs(self, kf: Keyframe) -> optim.LearningRates:
+        """The position LR follows the iteration count offline, and online
+        the use count of the keyframe being trained, clamped
+        (reference: src/gaussian_mapper.cpp:661-669)."""
         o = self.cfg.opt
-        step = min(self.iteration, o.position_lr_max_steps)
+        if self.online_lr:
+            step = min(self.sampler.use_counts.get(kf.fid, 0),
+                       o.position_lr_max_steps)
+        else:
+            step = min(self.iteration, o.position_lr_max_steps)
         pos_lr = optim.expon_lr(
             step,
             self.position_lr_init_live * self.spatial_lr_scale,
@@ -329,7 +342,7 @@ class GaussianTrainer:
 
         self.state, self.opt_state, metrics = train_step(
             self.state, self.opt_state, kf.matrices, gt, mask,
-            self._current_lrs(), self.bg_color, o.lambda_dssim, settings)
+            self._current_lrs(kf), self.bg_color, o.lambda_dssim, settings)
 
         # Densify / prune on schedule (reference: 721-730).
         if it < o.densify_until_iter:

@@ -5,9 +5,8 @@ include/gaussian_keyframe.h:36-135, src/gaussian_keyframe.cpp). The image
 and pyramid are host numpy arrays; the transform tensors are built once by
 set_pose with ops/camera_math.build_camera_matrices on the device it is
 given (natural convention; the reference stores transposed versions of the
-same matrices). The keypoints, auxiliary images and loop-closure
-bookkeeping of the JAX Keyframe serve the online mapper and are not
-carried yet.
+same matrices). The keypoints, the auxiliary image and the scheduling
+and loop-closure bookkeeping serve the online mapper (mapper/mapper.py).
 """
 from __future__ import annotations
 
@@ -40,12 +39,21 @@ class Keyframe:
     image: Optional[np.ndarray] = None
     pyramid: list[np.ndarray] = field(default_factory=list)
 
+    # Keypoints: undistorted pixel coords [K,2] and camera-local 3D [K,3]
+    # (0-filled where no matched map point — reference
+    # ORB-SLAM3/src/KeyFrame.cc:1169-1196 GetKeypointInfo).
+    kps_pixel: Optional[np.ndarray] = None
+    kps_point_local: Optional[np.ndarray] = None
     img_filename: str = ""
+    img_aux: Optional[np.ndarray] = None  # right image (stereo) / depth (RGBD)
 
     # Scheduling state (reference: remaining_times_of_use_,
     # gaus_pyramid_times_of_use_).
     remaining_times_of_use: int = 0
     pyramid_times_of_use: list[int] = field(default_factory=list)
+    done_inactive_geo_densify: bool = False
+    creation_iter: int = 0
+    set_this_time: bool = True  # loop-closure bookkeeping
 
     def set_pose(self, quat_wxyz, t, *, device) -> None:
         """Normalize + store pose, rebuild the transform bundle on `device`

@@ -57,6 +57,58 @@ def quat_to_rotmat(q: torch.Tensor) -> torch.Tensor:
     )
 
 
+def rotmat_to_quat(R: torch.Tensor) -> torch.Tensor:
+    """Batched rotation matrix [..., 3, 3] -> unit quaternion (w, x, y, z).
+
+    Branch-free Shoemake-style conversion (the reference uses the same
+    method on the device for loop-closure point transforms,
+    cuda_rasterizer/operate_points.h:100-180): each element takes the
+    numerically best of the four candidate constructions.
+    """
+    m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
+    m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
+    m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
+    tr = m00 + m11 + m22
+
+    def root(x):
+        return torch.sqrt(torch.clamp(x, min=1e-12)) * 2.0
+
+    s0 = root(tr + 1.0)
+    q0 = torch.stack([0.25 * s0, (m21 - m12) / s0, (m02 - m20) / s0,
+                      (m10 - m01) / s0], dim=-1)
+    s1 = root(1.0 + m00 - m11 - m22)
+    q1 = torch.stack([(m21 - m12) / s1, 0.25 * s1, (m01 + m10) / s1,
+                      (m02 + m20) / s1], dim=-1)
+    s2 = root(1.0 + m11 - m00 - m22)
+    q2 = torch.stack([(m02 - m20) / s2, (m01 + m10) / s2, 0.25 * s2,
+                      (m12 + m21) / s2], dim=-1)
+    s3 = root(1.0 + m22 - m00 - m11)
+    q3 = torch.stack([(m10 - m01) / s3, (m02 + m20) / s3, (m12 + m21) / s3,
+                      0.25 * s3], dim=-1)
+
+    cond0 = (tr > 0.0)[..., None]
+    cond1 = ((m00 >= m11) & (m00 >= m22))[..., None]
+    cond2 = (m11 >= m22)[..., None]
+    q = torch.where(cond0, q0,
+                    torch.where(cond1, q1, torch.where(cond2, q2, q3)))
+    return q / torch.linalg.norm(q, dim=-1, keepdim=True)
+
+
+def quat_multiply(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Hamilton product of (w, x, y, z) quaternions, batched."""
+    aw, ax, ay, az = a[..., 0], a[..., 1], a[..., 2], a[..., 3]
+    bw, bx, by, bz = b[..., 0], b[..., 1], b[..., 2], b[..., 3]
+    return torch.stack(
+        [
+            aw * bw - ax * bx - ay * by - az * bz,
+            aw * bx + ax * bw + ay * bz - az * by,
+            aw * by - ax * bz + ay * bw + az * bx,
+            aw * bz + ax * by - ay * bx + az * bw,
+        ],
+        dim=-1,
+    )
+
+
 def quat_to_rotmat_numpy(q: np.ndarray) -> np.ndarray:
     """Host-side 3x3 rotation from a (w,x,y,z) quaternion. The tracking
     frontend converts poses per frame — routing these tiny ops through JAX

@@ -105,6 +105,19 @@ def test_port_imports_with_jax_blocked():
         "import photo_slam_tpu_torch.models.densify\n"
         "import photo_slam_tpu_torch.models.optimizer\n"
         "import photo_slam_tpu_torch.kernels\n"
+        "import photo_slam_tpu_torch.mapper.mapper\n"
+        "import photo_slam_tpu_torch.mapper.mapping_ops\n"
+        "import photo_slam_tpu_torch.mapper.recorder\n"
+        "import photo_slam_tpu_torch.tracking.gt_tracker\n"
+        "import photo_slam_tpu_torch.apps.online_slam\n"
+        "import photo_slam_tpu_torch.apps.replay_stream\n"
+        "import photo_slam_tpu_torch.io.datasets\n"
+        "import photo_slam_tpu_torch.tools.synth_replica\n"
+        "import photo_slam_tpu_torch.models.transforms\n"
+        "import photo_slam_tpu_torch.ops.point_ops\n"
+        "import photo_slam_tpu_torch.ops.depth_ops\n"
+        "import photo_slam_tpu_torch.utils.trajectory\n"
+        "import photo_slam_tpu_torch.utils.profiling\n"
         "assert not any(m == 'jax' or m.startswith('jax.') for m, v in\n"
         "               sys.modules.items() if v is not None)\n"
         "print('ok')\n")

@@ -4,16 +4,25 @@ forward (K1's loop) and a backward (K2's) evaluate, against a count made
 pixel by pixel, for K1's 32 px tiles, X4's 16 px quadrants and X1's bf16
 chain; and k1_cull_counts and k2_cull_counts, K1's and K2's warp skips,
 against a count made warp by warp with the kernels' own thread-to-pixel
-map, as is tools/time_blend.py's share of stopping pixels and warps."""
+map, as is tools/time_blend.py's share of stopping pixels and warps; and
+the online phase's helpers: its in-memory sequence (tools/synth_replica.py)
+and the correction ops it makes and its CPU twin."""
 import numpy as np
 import pytest
 import torch
 
 import chip_smoke as cs
+from photo_slam_tpu_torch.config import dataset_config
+from photo_slam_tpu_torch.mapper import mapper as mapper_mod
+from photo_slam_tpu_torch.mapper import mapping_ops
+from photo_slam_tpu_torch.models.keyframe import Keyframe
 from photo_slam_tpu_torch.ops import blend as blend_mod
 from photo_slam_tpu_torch.tools import bench_room, time_blend
 from photo_slam_tpu_torch.tools import exp_blend16 as tx4
 from photo_slam_tpu_torch.tools import exp_blend_bf16 as tx1
+from photo_slam_tpu_torch.tools import synth_replica
+from photo_slam_tpu_torch.tracking.gt_tracker import GroundTruthTracker
+from photo_slam_tpu_torch.utils import math as cs_math
 from test_torch_blend import one_torch_thread, packed_tiles  # noqa: F401
 
 
@@ -240,3 +249,100 @@ def test_k2_cull_counts_match_a_count_by_warp():
     assert want["contributing_in_skipped"] == 0
     assert want["skipped_by_box"] > 0 and want["skipped_by_n_contrib"] > 0
     assert want["contributing_path_runs"] > 0
+
+
+# ---------------------------------------------------------------------------
+# The online phase's helpers: its in-memory sequence and the correction
+# ops held against a CPU copy.
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def sequence():
+    return synth_replica.SynthReplica(20, 64, 36, device="cpu",
+                                      n_splats=3000)
+
+
+def test_online_sequence(sequence):
+    """The sequence's frames, camera and depth: the Replica camera scaled as
+    ReplicaDataset scales it, and depth that back-projects onto the
+    cylinder the frames show."""
+    cam = sequence.camera
+    assert len(sequence) == 20 and (cam.width, cam.height) == (64, 36)
+    assert cam.fx == pytest.approx(600.0 * 64 / 1200)
+    assert cam.cy == pytest.approx((339.5 + 0.5) * 36 / 680 - 0.5)
+    # The chip's sequence: 120 frames, a keyframe every 10.
+    assert len(range(0, cs.ONLINE_FRAMES, 10)) == cs.ONLINE_KEYFRAMES
+    v, u = np.mgrid[0:36, 0:64]
+    for i, fr in enumerate(sequence.frames()):
+        assert fr.image.shape == (3, 36, 64) and fr.depth.shape == (36, 64)
+        assert 0.0 <= fr.image.min() and fr.image.max() <= 1.0
+        assert fr.filename == f"frame{i:06d}.jpg"
+        np.testing.assert_allclose(
+            cs_math.se3_inverse(cs_math.se3_matrix(fr.quat_wxyz, fr.trans)),
+            sequence.c2w[i], atol=1e-9)
+        x = (u - cam.cx) / cam.fx * fr.depth
+        y = (v - cam.cy) / cam.fy * fr.depth
+        pts = np.stack([x, y, fr.depth], -1).reshape(-1, 3)
+        world = pts @ sequence.c2w[i][:3, :3].T + sequence.c2w[i][:3, 3]
+        np.testing.assert_allclose(np.hypot(world[:, 0], world[:, 2]),
+                                   synth_replica.CYL_R, atol=1e-3)
+    assert sequence.c2w[0][:3, 3] == pytest.approx([0.0, 0.0, 0.0])
+
+
+def online_mods():
+    return dict(mapping_ops=mapping_ops, mapper=mapper_mod,
+                Keyframe=Keyframe)
+
+
+def test_correction_op_helpers(sequence):
+    """loop_closing_op moves a keyframe past replica_rgbd's pose-delta
+    test, scale_refinement_op scales and shifts the map, and the CPU twin
+    that chip_smoke holds the card against gets the same map and moments
+    from the same ops."""
+    cfg = dataset_config("replica_rgbd")
+    cfg.mapper.min_num_initial_map_kfs = 2
+    mapper = mapper_mod.GaussianMapper(cfg, mapper_mod.SensorType.RGBD,
+                                       device="cpu")
+    mapper.add_camera(sequence.camera)
+    tracker = GroundTruthTracker(sequence.camera, keyframe_every=10,
+                                 num_keypoints=100)
+    tracker.run(sequence.frames(), mapper.queue.push)
+    mapper.combine_mapping_operations()
+    mapper.initialize_mapping()
+    mapper.trainer.opt_state = mapper.trainer.opt_state._replace(
+        m=type(mapper.trainer.opt_state.m)(*(
+            torch.ones_like(x) for x in mapper.trainer.opt_state.m)))
+    m = online_mods()
+    twin = cs.cpu_twin(torch, m, mapper)
+    assert cs.map_rel_err(torch, mapper.trainer, twin.trainer) == 0.0
+    assert twin.trainer.state.params.xyz is not mapper.trainer.state.params.xyz
+
+    op = cs.loop_closing_op(m, mapper)
+    kf = op.keyframes[0]
+    assert kf.kfid == 0 and np.allclose(
+        kf.trans - mapper.scene.keyframes[0].trans, cs.LOOP_SHIFT)
+    assert max(cs.LOOP_SHIFT) > cfg.mapper.large_translation_threshold
+    live = int(mapper.trainer.state.live.sum())
+    moved = cs.apply_op(torch, mapper, op)
+    assert 0 < moved <= live
+    assert cs.apply_op(torch, twin, op) == moved
+    assert cs.map_rel_err(torch, mapper.trainer, twin.trainer) == 0.0
+    assert not mapper.trainer.opt_state.m.xyz.all()   # moments reset
+
+    op = cs.scale_refinement_op(m)
+    assert op.scale == cs.SCALE_OP[0]
+    np.testing.assert_allclose(op.transform[:3, 3], cs.SCALE_OP[1], rtol=1e-7)
+    assert cs.apply_op(torch, mapper, op) == live
+    cs.apply_op(torch, twin, op)
+    assert cs.map_rel_err(torch, mapper.trainer, twin.trainer) == 0.0
+    np.testing.assert_allclose(mapper.scene.keyframes[1].trans,
+                               twin.scene.keyframes[1].trans)
+
+
+def test_rel_err():
+    a = torch.tensor([1.0, -2.0, 4.0])
+    assert cs.rel_err(torch, a, a) == 0.0
+    assert cs.rel_err(torch, a + torch.tensor([0.0, 0.4, 0.0]),
+                      a) == pytest.approx(0.1)
+    assert cs.rel_err(torch, torch.tensor([0.5]),
+                      torch.zeros(1)) == pytest.approx(0.5)
