@@ -5,15 +5,19 @@ example mains (reference: examples/replica_rgbd.cpp, tum_rgbd.cpp,
 tum_mono.cpp): load a sequence, run the tracker thread and the Gaussian
 mapper concurrently, save the trajectories, per-keyframe metrics and the
 final map. The map and its training run on `--device` (default cuda); the
-tracker thread stays on the host.
+tracker thread stays on the host, apart from the feature frontends' ORB,
+which runs on the same device.
 
-The port has the ground-truth-pose frontend (`--frontend gt`): the
-datasets ship GT trajectories. The feature frontends (`slam`, `vo`), the
-live viewer and the EuRoC stereo app come with later slices of the port.
+Frontends: `slam` (the default: local-map tracking, local BA on its own
+thread unless --no-async-mapping, loop closing, relocalization), `vo`
+(ORB + PnP odometry) and `gt` (the datasets' ground-truth poses). The
+inertial frontend (--imu), the EuRoC stereo app and the live viewer come
+with later slices of the port and raise.
 
 Usage:
   python -m photo_slam_tpu_torch.apps.online_slam replica_rgbd \
-      --data <seq> --out <dir> --frontend gt [--iters N] [--device cuda]
+      --data <seq> --out <dir> [--frontend slam|vo|gt] [--iters N] \
+      [--device cuda]
 """
 from __future__ import annotations
 
@@ -31,28 +35,53 @@ from photo_slam_tpu_torch.config import (Config, dataset_config,
 from photo_slam_tpu_torch.mapper.mapper import GaussianMapper, SensorType
 from photo_slam_tpu_torch.models.camera import PINHOLE, Camera
 from photo_slam_tpu_torch.tracking.gt_tracker import GroundTruthTracker
-from photo_slam_tpu_torch.utils.math import se3_matrix
+from photo_slam_tpu_torch.utils.evaluate import ate_rmse
+from photo_slam_tpu_torch.utils.math import se3_inverse, se3_matrix
 from photo_slam_tpu_torch.utils.profiling import device_memory_stats
 from photo_slam_tpu_torch.utils.trajectory import save_all_formats
 
-NOT_PORTED = ("the feature frontends (--frontend slam, vo) wait for the "
-              "host-SLAM slice of the port (ROADMAP Queue 1); pass "
-              "--frontend gt")
+INERTIAL_SLICE = ("waits for the EuRoC stereo-inertial slice of the port "
+                  "(ROADMAP Queue 1)")
+
+
+def _make_tracker(frontend: str, dataset, sensor: SensorType,
+                  keyframe_every: int, num_keypoints: int,
+                  async_mapping: bool, device):
+    if frontend == "gt":
+        return GroundTruthTracker(dataset.camera,
+                                  keyframe_every=keyframe_every,
+                                  num_keypoints=num_keypoints)
+    if frontend == "vo":
+        from photo_slam_tpu_torch.tracking.vo_tracker import OrbVoTracker
+        return OrbVoTracker(dataset.camera, device=device)
+    if frontend != "slam":
+        raise ValueError(f"unknown frontend {frontend!r}")
+    from photo_slam_tpu_torch.tracking.frontend import SlamFrontend
+    sensor_name = {SensorType.MONOCULAR: "mono", SensorType.STEREO: "stereo",
+                   SensorType.RGBD: "rgbd"}[sensor]
+    return SlamFrontend(dataset.camera, sensor=sensor_name,
+                        num_features=max(num_keypoints, 1000),
+                        async_local_mapping=async_mapping, device=device)
 
 
 def run_online(dataset, sensor: SensorType, cfg: Config, out_dir,
                keyframe_every: int = 10, num_keypoints: int = 800,
                max_iterations=None, threaded: bool = True,
-               frontend: str = "gt", viewer: bool = False, batch: int = 1,
+               frontend: str = "slam", viewer: bool = False, batch: int = 1,
+               async_mapping: bool = True, use_imu: bool = False,
                *, device) -> GaussianMapper:
     """Drive a sequence through tracker + mapper on `device` (reference:
     examples/replica_rgbd.cpp main). `dataset` is any object with a
-    `camera` and a `frames()` iterator of gt_tracker.Frame. With
-    threaded=True the tracker runs on its own thread beside the mapper, as
-    in the reference; with threaded=False it pushes the whole sequence
-    first, so the queue's contents do not depend on thread timing."""
-    if frontend != "gt":
-        raise NotImplementedError(NOT_PORTED)
+    `camera` and a `frames()` iterator of gt_tracker.Frame. `frontend`
+    selects the tracking stack: "slam" (feature SLAM: local map, local BA,
+    loop closing), "vo" (ORB + PnP odometry) or "gt" (the dataset's
+    ground-truth poses); the feature frontends extract ORB on `device`.
+    With threaded=True the tracker runs on its own thread beside the
+    mapper, as in the reference; with threaded=False it pushes the whole
+    sequence first, so the queue's contents do not depend on thread
+    timing."""
+    if use_imu:
+        raise NotImplementedError("--imu " + INERTIAL_SLICE)
     if viewer:
         raise NotImplementedError("the live viewer waits for the viewer "
                                   "slice of the port (ROADMAP Queue 1)")
@@ -60,9 +89,20 @@ def run_online(dataset, sensor: SensorType, cfg: Config, out_dir,
     out.mkdir(parents=True, exist_ok=True)
     mapper = GaussianMapper(cfg, sensor, result_dir=out, device=device)
     mapper.add_camera(dataset.camera)
-    tracker = GroundTruthTracker(dataset.camera,
-                                 keyframe_every=keyframe_every,
-                                 num_keypoints=num_keypoints)
+    tracker = _make_tracker(frontend, dataset, sensor, keyframe_every,
+                            num_keypoints, async_mapping, mapper.device)
+
+    # Stream frames through the tracker while recording GT for ATE.
+    gt_poses: list = []
+    stamps: list = []
+
+    def frames_with_gt():
+        for i, fr in enumerate(dataset.frames()):
+            gt_poses.append(se3_matrix(fr.quat_wxyz, fr.trans)
+                            if fr.quat_wxyz is not None else None)
+            stamps.append(fr.timestamp if fr.timestamp is not None
+                          else float(i))
+            yield fr
 
     t0 = time.time()
     if threaded:
@@ -74,7 +114,7 @@ def run_online(dataset, sensor: SensorType, cfg: Config, out_dir,
 
         def run_tracker():
             try:
-                tracker.run(dataset.frames(), mapper.queue.push)
+                tracker.run(frames_with_gt(), mapper.queue.push)
             except BaseException as e:  # noqa: BLE001 - re-raised below
                 tracker_error.append(e)
                 tracker.done = True
@@ -90,24 +130,37 @@ def run_online(dataset, sensor: SensorType, cfg: Config, out_dir,
         if tracker_error:
             raise tracker_error[0]
     else:
-        tracker.run(dataset.frames(), mapper.queue.push)
+        tracker.run(frames_with_gt(), mapper.queue.push)
         mapper.run(is_tracker_done=lambda: True,
                    live_kf_ids=lambda: tracker.live_kf_ids,
                    max_iterations=max_iterations, batch=batch)
     wall = time.time() - t0
 
-    # Trajectory outputs, the reference's 5-file set: with the GT frontend
-    # the keyframe poses are the trajectory.
+    # Trajectory outputs, the reference's 5-file set, and the ATE RMSE
+    # when the tracker estimated poses and the dataset has ground truth;
+    # with the GT frontend the keyframe poses are the trajectory.
+    ate = None
+    est_tcw = getattr(tracker, "trajectory", None)
     kf_stamps, kf_tcw = [], []
     for fid, kf in sorted(mapper.scene.keyframes.items()):
         kf_stamps.append(float(fid))
         kf_tcw.append(se3_matrix(kf.quat, kf.trans))
-    save_all_formats(out, kf_stamps, kf_tcw, kf_stamps, kf_tcw)
+    if est_tcw:
+        n = min(len(est_tcw), len(stamps))
+        save_all_formats(out, stamps[:n], est_tcw[:n], kf_stamps, kf_tcw)
+        pairs = [(g, e) for g, e in zip(gt_poses[:n], est_tcw[:n])
+                 if g is not None]
+        if len(pairs) >= 3:
+            gt_pos = np.stack([se3_inverse(g)[:3, 3] for g, _ in pairs])
+            est_pos = np.stack([se3_inverse(e)[:3, 3] for _, e in pairs])
+            ate = float(ate_rmse(est_pos, gt_pos))
+    else:
+        save_all_formats(out, kf_stamps, kf_tcw, kf_stamps, kf_tcw)
 
     # Per-frame tracking time + device-memory artifacts (reference:
     # examples/replica_rgbd.cpp:164-172 TrackingTime.txt, :235-249
     # GpuPeakUsageMB.txt).
-    track_times = tracker.track_times
+    track_times = getattr(tracker, "track_times", [])
     if track_times:
         (out / "TrackingTime.txt").write_text(
             "\n".join(f"{t:.6f}" for t in track_times) + "\n")
@@ -123,10 +176,11 @@ def run_online(dataset, sensor: SensorType, cfg: Config, out_dir,
         "num_keyframes": len(mapper.scene.keyframes),
         "num_gaussians": mapper.trainer.metrics.num_live,
         "ema_loss": mapper.trainer.ema_loss,
-        "ate_rmse": None,
-        "loops_closed": 0,
-        "imu_initialized": None,
-        "scale_refinements": None,
+        "ate_rmse": ate,
+        "loops_closed": getattr(tracker, "num_loops_closed", 0),
+        "imu_initialized": getattr(tracker, "imu_initialized", None),
+        "scale_refinements": getattr(tracker, "num_scale_refinements",
+                                     None),
         "mean_tracking_ms": (1000.0 * float(np.mean(track_times))
                              if track_times else None),
         "device_memory": mem,
@@ -135,11 +189,15 @@ def run_online(dataset, sensor: SensorType, cfg: Config, out_dir,
     print(f"[online_slam] {mapper.trainer.iteration} iters, "
           f"{len(mapper.scene.keyframes)} kfs, "
           f"{mapper.trainer.metrics.num_live} gaussians, "
-          f"ate=None, {wall:.1f}s on {mapper.device} -> {out}")
+          f"ate={ate}, {wall:.1f}s on {mapper.device} -> {out}")
     if not mapper.scene.keyframes:
+        # Tracking produced nothing: a failure, not an empty "successful"
+        # run (the feature frontends need trackable texture; --frontend gt
+        # always works on GT-pose datasets).
         raise SystemExit(
-            "[online_slam] ERROR: no keyframes were produced "
-            f"(frontend={frontend}); check the sequence directory")
+            "[online_slam] ERROR: no keyframes were produced; tracking "
+            f"failed on every frame (frontend={frontend}). Check image "
+            "texture/resolution or rerun with --frontend gt.")
     return mapper
 
 
@@ -165,16 +223,24 @@ def _common_parser():
     ap.add_argument("--keyframe-every", type=int, default=10)
     ap.add_argument("--frontend", choices=("slam", "vo", "gt"),
                     default="slam",
-                    help="tracking stack; the port has gt (ground-truth "
-                         "poses), the feature frontends slam and vo are "
-                         "not ported yet")
+                    help="tracking stack: full feature SLAM (default), "
+                         "plain ORB+PnP odometry, or ground-truth poses")
     ap.add_argument("--viewer", action="store_true",
                     help="live web viewer (not ported yet)")
     ap.add_argument("--batch", type=int, default=1,
                     help="keyframes per optimization step (only 1 is "
                          "ported)")
+    ap.add_argument("--imu", action="store_true",
+                    help="visual-inertial tracking (not ported yet)")
+    ap.add_argument("--async-mapping", action=argparse.BooleanOptionalAction,
+                    default=True,
+                    help="run the SLAM frontend's local mapping (cull, "
+                         "local BA, loop verification) on its own thread, "
+                         "the reference's LocalMapping-thread architecture "
+                         "(ORB-SLAM3/src/System.cc:194-213)")
     ap.add_argument("--device", default="cuda",
-                    help="torch device to map on (default: cuda)")
+                    help="torch device to map and extract ORB on "
+                         "(default: cuda)")
     return ap
 
 
@@ -184,6 +250,7 @@ def _run(args, ds, sensor, app):
                       keyframe_every=args.keyframe_every,
                       max_iterations=args.iters, frontend=args.frontend,
                       viewer=args.viewer, batch=args.batch,
+                      async_mapping=args.async_mapping, use_imu=args.imu,
                       device=cli_device(args.device))
 
 
@@ -197,9 +264,9 @@ def replica_rgbd(argv=None):
 def replica_mono(argv=None):
     from photo_slam_tpu_torch.io.datasets import ReplicaDataset
     args = _common_parser().parse_args(argv)
-    # Monocular: the GT tracker still seeds sparse keypoints from GT depth
-    # (standing in for ORB triangulation), the mapper runs the monocular
-    # densification path.
+    # Monocular: the feature frontends triangulate (the GT tracker seeds
+    # sparse keypoints from GT depth instead), the mapper runs the
+    # monocular densification path.
     ds = ReplicaDataset(args.data, load_depth_maps=(args.frontend == "gt"))
     return _run(args, ds, SensorType.MONOCULAR, "replica_mono")
 
@@ -238,8 +305,13 @@ def tum_mono(argv=None):
     return _run(args, ds, SensorType.MONOCULAR, "tum_mono")
 
 
+def euroc_stereo(argv=None):
+    raise NotImplementedError("euroc_stereo " + INERTIAL_SLICE)
+
+
 APPS = {"replica_rgbd": replica_rgbd, "replica_mono": replica_mono,
-        "tum_rgbd": tum_rgbd, "tum_mono": tum_mono}
+        "tum_rgbd": tum_rgbd, "tum_mono": tum_mono,
+        "euroc_stereo": euroc_stereo}
 
 
 if __name__ == "__main__":

@@ -346,3 +346,56 @@ def test_rel_err():
                       a) == pytest.approx(0.1)
     assert cs.rel_err(torch, torch.tensor([0.5]),
                       torch.zeros(1)) == pytest.approx(0.5)
+
+
+# ---------------------------------------------------------------------------
+# The slam phase's helpers: the ATE it checks and ORB's keypoint agreement
+# between two devices.
+# ---------------------------------------------------------------------------
+
+def test_trajectory_ate(sequence):
+    gt = [cs_math.se3_matrix(f.quat_wxyz, f.trans)
+          for f in sequence.frames()]
+    assert cs.trajectory_ate(gt, gt) < 1e-12
+    # A similarity of the whole trajectory aligns away.
+    S = np.diag([2.0, 2.0, 2.0, 1.0])
+    S[:3, 3] = [1.0, -2.0, 0.5]
+    moved = [T @ np.linalg.inv(S) for T in gt]
+    moved = [np.vstack([T[:3] / np.cbrt(np.linalg.det(T[:3, :3])),
+                        [0, 0, 0, 1]]) for T in moved]
+    assert cs.trajectory_ate(moved, gt) < 1e-9
+    # A 1 cm offset of every other centre shows.
+    noisy = [T.copy() for T in gt]
+    for T in noisy[::2]:
+        T[:3, 3] += T[:3, :3] @ np.array([0.01, 0.0, 0.0])
+    assert 0.003 < cs.trajectory_ate(noisy, gt) < 0.01
+    assert cs.SLAM_ATE_M == 0.05
+
+
+def test_keypoint_agreement():
+    from photo_slam_tpu_torch.tracking import vision
+
+    rng = np.random.default_rng(0)
+    gray = (rng.random((120, 160)) * 255).astype(np.uint8)
+    a = vision.orb_detect_and_compute(gray, 300, torch.device("cpu"))
+    assert len(a.px) > 50
+    assert cs.keypoint_agreement(a, a) == (1.0, 1.0)
+    # One keypoint moved by 1e-2 px and one descriptor bit flipped.
+    px = a.px.copy()
+    px[0, 0] += 1e-2
+    desc = a.desc.copy()
+    desc[1, 0] ^= 1
+    b = a._replace(px=px, desc=desc)
+    share, same = cs.keypoint_agreement(a, b)
+    assert share == pytest.approx(1 - 1 / len(a.px))
+    assert same == pytest.approx(1 - 1 / (len(a.px) - 1))
+    # A level mismatch is no twin; a missing keypoint counts against.
+    lvl = a.level.copy()
+    lvl[2] = 7 - lvl[2]
+    c = a._replace(level=lvl)
+    assert cs.keypoint_agreement(a, c)[0] == pytest.approx(
+        1 - 1 / len(a.px))
+    d = a._replace(**{k: v[1:] for k, v in a._asdict().items()})
+    assert cs.keypoint_agreement(a, d)[0] == pytest.approx(
+        1 - 1 / len(a.px))
+    assert cs.ms_stats([0.001, 0.002]).startswith("1.500 / ")

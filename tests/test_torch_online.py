@@ -29,6 +29,7 @@ from photo_slam_tpu_torch.apps import online_slam as tonline
 from photo_slam_tpu_torch.mapper import mapper as tmapper
 from photo_slam_tpu_torch.ops.preprocess import compute_cov3d
 from photo_slam_tpu_torch.tools.synth_replica import SynthReplica
+from photo_slam_tpu_torch.tools.synth_replica import replica_camera
 from photo_slam_tpu_torch.tracking import gt_tracker as tgt
 from test_mapper import small_cfg
 from test_torch_blend import one_torch_thread  # noqa: F401
@@ -230,12 +231,81 @@ def test_online_slam_cli_matches_jax(tmp_path):
 
 def test_cli_refuses_what_is_not_ported(tmp_path):
     seq = Sequence(camera(), [])
-    for kw in ({"frontend": "slam"}, {"frontend": "vo"}, {"viewer": True}):
-        with pytest.raises(NotImplementedError):
+    for kw in ({"use_imu": True}, {"viewer": True}):
+        with pytest.raises(NotImplementedError, match="Queue 1"):
             tonline.run_online(seq, tmapper.SensorType.RGBD,
                                tconfig.Config(), tmp_path, device="cpu",
                                **kw)
+    with pytest.raises(NotImplementedError, match="stereo-inertial"):
+        tonline.run_online(seq, tmapper.SensorType.STEREO, tconfig.Config(),
+                           tmp_path, frontend="slam", device="cpu")
+    with pytest.raises(NotImplementedError, match="stereo-inertial"):
+        tonline.APPS["euroc_stereo"](["--data", str(tmp_path), "--out",
+                                      str(tmp_path)])
     mapper = tmapper.GaussianMapper(tconfig.Config(),
                                     tmapper.SensorType.RGBD, device="cpu")
     with pytest.raises(NotImplementedError, match="Queue 1"):
         mapper.run(is_tracker_done=lambda: True, batch=2)
+
+
+def write_textured_replica(root, num=12):
+    """A Replica-layout sequence (PNG frames, 16-bit depth, traj.txt) of
+    test_torch_frontend's textured plane through the Replica camera scaled
+    to 320x181, the camera sliding sideways."""
+    import cv2
+    from photo_slam_tpu_torch.io.datasets import REPLICA_DEPTH_SCALE
+    from test_torch_frontend import splat_render, textured_world
+
+    cam = replica_camera(320, 181)
+    world = textured_world(seed=2)
+    results = root / "results"
+    results.mkdir(parents=True)
+    c2w = []
+    for i in range(num):
+        t = np.array([0.04 * i, 0.01 * i, 0.0])    # world->camera
+        img = splat_render(world, np.eye(3), t, cam)
+        cv2.imwrite(str(results / f"frame{i:06d}.png"), cv2.cvtColor(
+            (np.transpose(img, (1, 2, 0)) * 255).round().astype(np.uint8),
+            cv2.COLOR_RGB2BGR))
+        depth = np.full((cam.height, cam.width), 5.0 * REPLICA_DEPTH_SCALE)
+        cv2.imwrite(str(results / f"depth{i:06d}.png"),
+                    depth.round().astype(np.uint16))
+        T = np.eye(4)
+        T[:3, 3] = -t
+        c2w.append(T.reshape(-1))
+    np.savetxt(root / "traj.txt", np.stack(c2w))
+    return root
+
+
+@pytest.fixture(scope="module")
+def textured_replica(tmp_path_factory):
+    return write_textured_replica(tmp_path_factory.mktemp("textured"))
+
+
+@pytest.mark.parametrize("frontend", ["slam", "vo"])
+def test_online_slam_cli_feature_frontends(frontend, textured_replica,
+                                           tmp_path):
+    """`online_slam replica_rgbd --frontend slam|vo --device cpu` tracks the
+    sequence with the port's ORB and writes the JAX artifact set (with the
+    slam frontend's per-frame TrackingTime.txt) and a finite ATE against
+    the sequence's poses in run_summary.json."""
+    out = tmp_path / frontend
+    mapper = tonline.replica_rgbd([
+        "--data", str(textured_replica), "--out", str(out), "--iters", "3",
+        "--frontend", frontend, "--device", "cpu"])
+    assert mapper.trainer.iteration == 3 and len(mapper.scene.keyframes) >= 2
+    for name in TRAJECTORIES + ("cameras.json", "run_summary.json",
+                                "GpuPeakUsageMB.txt", "psnr_shutdown.txt"):
+        assert (out / name).exists(), name
+    # The VO tracker keeps no per-frame times, in JAX neither.
+    assert (out / "TrackingTime.txt").exists() == (frontend == "slam")
+    summary = json.loads((out / "run_summary.json").read_text())
+    assert summary["frontend"] == frontend
+    assert np.isfinite(summary["ate_rmse"]) and summary["ate_rmse"] < 0.05
+    assert len((out / "CameraTrajectory_TUM.txt").read_text().splitlines()) \
+        == 12
+    if frontend == "slam":
+        times = np.loadtxt(out / "TrackingTime.txt")
+        assert len(times) == 12 and (times > 0).all()
+        assert summary["mean_tracking_ms"] > 0
+        assert summary["loops_closed"] == 0
