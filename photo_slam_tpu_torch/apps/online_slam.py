@@ -9,15 +9,19 @@ tracker thread stays on the host, apart from the feature frontends' ORB,
 which runs on the same device.
 
 Frontends: `slam` (the default: local-map tracking, local BA on its own
-thread unless --no-async-mapping, loop closing, relocalization), `vo`
-(ORB + PnP odometry) and `gt` (the datasets' ground-truth poses). The
-inertial frontend (--imu), the EuRoC stereo app and the live viewer come
-with later slices of the port and raise.
+thread unless --no-async-mapping, loop closing, relocalization; with --imu
+the visual-inertial initialization and its ScaleRefinement ops), `vo`
+(ORB + PnP odometry) and `gt` (the datasets' ground-truth poses). Stereo
+depth (euroc_stereo) is the port's SGM on the device. The live viewer
+(--viewer) and batched training (--batch > 1) come with later slices of
+the port and raise.
 
 Usage:
   python -m photo_slam_tpu_torch.apps.online_slam replica_rgbd \
       --data <seq> --out <dir> [--frontend slam|vo|gt] [--iters N] \
       [--device cuda]
+  python -m photo_slam_tpu_torch.apps.online_slam euroc_stereo \
+      --data <EuRoC sequence> --out <dir> [--imu] [--bf 47.9]
 """
 from __future__ import annotations
 
@@ -40,13 +44,11 @@ from photo_slam_tpu_torch.utils.math import se3_inverse, se3_matrix
 from photo_slam_tpu_torch.utils.profiling import device_memory_stats
 from photo_slam_tpu_torch.utils.trajectory import save_all_formats
 
-INERTIAL_SLICE = ("waits for the EuRoC stereo-inertial slice of the port "
-                  "(ROADMAP Queue 1)")
-
 
 def _make_tracker(frontend: str, dataset, sensor: SensorType,
                   keyframe_every: int, num_keypoints: int,
-                  async_mapping: bool, device):
+                  async_mapping: bool = True, use_imu: bool = False, *,
+                  device):
     if frontend == "gt":
         return GroundTruthTracker(dataset.camera,
                                   keyframe_every=keyframe_every,
@@ -59,9 +61,14 @@ def _make_tracker(frontend: str, dataset, sensor: SensorType,
     from photo_slam_tpu_torch.tracking.frontend import SlamFrontend
     sensor_name = {SensorType.MONOCULAR: "mono", SensorType.STEREO: "stereo",
                    SensorType.RGBD: "rgbd"}[sensor]
+    imu_calib = getattr(dataset, "imu_calib", None)
+    if use_imu and imu_calib is None:
+        raise ValueError("--imu requested but the dataset has no IMU "
+                         "channel/calibration (expected mav0/imu0)")
     return SlamFrontend(dataset.camera, sensor=sensor_name,
                         num_features=max(num_keypoints, 1000),
-                        async_local_mapping=async_mapping, device=device)
+                        async_local_mapping=async_mapping,
+                        use_imu=use_imu, imu_calib=imu_calib, device=device)
 
 
 def run_online(dataset, sensor: SensorType, cfg: Config, out_dir,
@@ -75,13 +82,14 @@ def run_online(dataset, sensor: SensorType, cfg: Config, out_dir,
     `camera` and a `frames()` iterator of gt_tracker.Frame. `frontend`
     selects the tracking stack: "slam" (feature SLAM: local map, local BA,
     loop closing), "vo" (ORB + PnP odometry) or "gt" (the dataset's
-    ground-truth poses); the feature frontends extract ORB on `device`.
+    ground-truth poses); the feature frontends extract ORB and compute
+    stereo disparity on `device`. `use_imu` runs the slam frontend's
+    visual-inertial path on the dataset's `imu_calib` (ValueError when it
+    has none).
     With threaded=True the tracker runs on its own thread beside the
     mapper, as in the reference; with threaded=False it pushes the whole
     sequence first, so the queue's contents do not depend on thread
     timing."""
-    if use_imu:
-        raise NotImplementedError("--imu " + INERTIAL_SLICE)
     if viewer:
         raise NotImplementedError("the live viewer waits for the viewer "
                                   "slice of the port (ROADMAP Queue 1)")
@@ -90,7 +98,8 @@ def run_online(dataset, sensor: SensorType, cfg: Config, out_dir,
     mapper = GaussianMapper(cfg, sensor, result_dir=out, device=device)
     mapper.add_camera(dataset.camera)
     tracker = _make_tracker(frontend, dataset, sensor, keyframe_every,
-                            num_keypoints, async_mapping, mapper.device)
+                            num_keypoints, async_mapping, use_imu,
+                            device=mapper.device)
 
     # Stream frames through the tracker while recording GT for ATE.
     gt_poses: list = []
@@ -231,7 +240,8 @@ def _common_parser():
                     help="keyframes per optimization step (only 1 is "
                          "ported)")
     ap.add_argument("--imu", action="store_true",
-                    help="visual-inertial tracking (not ported yet)")
+                    help="visual-inertial tracking (slam frontend; needs "
+                         "the dataset's IMU channel)")
     ap.add_argument("--async-mapping", action=argparse.BooleanOptionalAction,
                     default=True,
                     help="run the SLAM frontend's local mapping (cull, "
@@ -306,7 +316,17 @@ def tum_mono(argv=None):
 
 
 def euroc_stereo(argv=None):
-    raise NotImplementedError("euroc_stereo " + INERTIAL_SLICE)
+    from photo_slam_tpu_torch.io.datasets import EurocDataset
+    ap = _common_parser()
+    ap.add_argument("--bf", type=float, default=47.9)  # baseline * fx
+    args = ap.parse_args(argv)
+    # Fallback intrinsics only: with sensor.yaml calibration present the
+    # loader rectifies and derives the camera itself.
+    cam = Camera(camera_id=0, model_id=PINHOLE, width=752, height=480,
+                 fx=458.654, fy=457.296, cx=367.215, cy=248.375,
+                 stereo_bf=args.bf)
+    return _run(args, EurocDataset(args.data, cam), SensorType.STEREO,
+                "euroc_stereo")
 
 
 APPS = {"replica_rgbd": replica_rgbd, "replica_mono": replica_mono,

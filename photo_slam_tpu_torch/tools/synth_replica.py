@@ -30,6 +30,7 @@ import torch
 
 from photo_slam_tpu_torch.io.datasets import (REPLICA_CAMERA,
                                               REPLICA_DEPTH_SCALE)
+from photo_slam_tpu_torch.io.images import read_png
 from photo_slam_tpu_torch.models.camera import PINHOLE, Camera
 from photo_slam_tpu_torch.ops.camera_math import build_camera_matrices
 from photo_slam_tpu_torch.ops.render import (RenderSettings, principal_for,
@@ -61,24 +62,23 @@ def pink_texture(size, seed):
     return (t - t.min()) / (np.ptp(t) + 1e-9)
 
 
-def photo_atlas(size=1024):
+PHOTO = Path(__file__).resolve().parent / "data" / "grace_hopper.png"
+
+
+def photo_atlas(size=1024, photo=PHOTO):
     """Texture atlas with photographic statistics: a real photograph
-    (matplotlib's bundled grace_hopper.jpg) pasted over correlated
-    pink-noise channels; the pink-noise atlas alone where matplotlib's
-    sample data or PIL is missing."""
+    (matplotlib's bundled grace_hopper.jpg, which bench.py decodes with
+    PIL; its decoded pixels are kept beside this module as a PNG, so the
+    machines without PIL or matplotlib build the same atlas) pasted over
+    correlated pink-noise channels; the pink noise alone with photo=None."""
     base = np.stack([pink_texture(size, 11), pink_texture(size, 12),
                      pink_texture(size, 13)], -1)
     base = 0.15 + 0.7 * (0.6 * base + 0.4 * base.mean(-1, keepdims=True))
-    try:
-        from matplotlib import cbook
-        from PIL import Image
-        ph = np.asarray(Image.open(cbook.get_sample_data(
-            "grace_hopper.jpg", asfileobj=False))).astype(np.float32) / 255.0
-    except (ImportError, OSError, ValueError):
-        return base.astype(np.float32)
-    h, w = ph.shape[:2]
-    base[:h, :w, :] = ph[:size, :size]
-    base[h:, :w, :] = ph[: size - h, :size][::-1]
+    if photo is not None:
+        ph = read_png(photo).astype(np.float32) / 255.0
+        h, w = ph.shape[:2]
+        base[:h, :w, :] = ph[:size, :size]
+        base[h:, :w, :] = ph[: size - h, :size][::-1]
     return base.astype(np.float32)
 
 

@@ -27,17 +27,18 @@ Monocular initialization is two-view: essential matrix + recoverPose +
 triangulation, scene scaled to unit median depth
 (Tracking::MonocularInitialization).
 
-Counterpart of photo_slam_tpu/tracking/frontend.py for sensor "rgbd" and
-"mono". The OpenCV calls of the JAX frontend go through the port's own
-tracking/vision.py (a test swaps OpenCV's versions in there); ORB runs in
-torch on the frontend's `device`, on its own CUDA stream when that is a
-card, and everything else stays numpy on the host. The frontend never
-touches the mapper's device tensors: it hands over numpy payloads in
-MappingOperation. The stereo sensor, the inertial frontend (`use_imu`) and
-distorted cameras (the JAX `_rectify_frame`) wait for the EuRoC
-stereo-inertial slice of the port and raise NotImplementedError.
+Counterpart of photo_slam_tpu/tracking/frontend.py for the sensors
+"rgbd", "stereo" and "mono", with or without the IMU (`use_imu`), on
+pinhole or distorted cameras (frames are rectified to the pinhole view,
+`_rectify_frame`). The OpenCV calls of the JAX frontend go through the
+port's own tracking/vision.py and ops/stereo.py (a test swaps OpenCV's
+versions in there); ORB and the stereo disparity (SGM, the sgm kernel)
+run in torch on the frontend's `device`, on its own CUDA stream when that
+is a card, and everything else stays numpy on the host, the inertial
+state float64 (tracking/imu.py). The frontend never touches the mapper's
+device tensors: it hands over numpy payloads in MappingOperation.
 
-Per-frame stage times (`stage_times`): ORB, matching and PnP on the
+Per-frame stage times (`stage_times`): SGM, ORB, matching and PnP on the
 tracking thread per frame, local BA per call on whichever thread runs it.
 """
 from __future__ import annotations
@@ -56,17 +57,17 @@ from photo_slam_tpu_torch.mapper.mapping_ops import (KeyframeData,
 from photo_slam_tpu_torch.models.camera import Camera
 from photo_slam_tpu_torch.native import (local_ba, pose_graph_optimize,
                                          pose_optimize)
+from photo_slam_tpu_torch.ops import stereo
 from photo_slam_tpu_torch.tracking import vision
 from photo_slam_tpu_torch.tracking.gt_tracker import Frame
+from photo_slam_tpu_torch.tracking.imu import (ImuBias, ImuCalib,
+                                               Preintegrated, initialize_imu,
+                                               so3_log)
 from photo_slam_tpu_torch.tracking.local_map import KeyframeNode, LocalMap
 from photo_slam_tpu_torch.tracking.vocab import KeyframeDatabase
 from photo_slam_tpu_torch.utils.math import (rotmat_to_quat_numpy,
                                              se3_inverse, se3_matrix)
 from photo_slam_tpu_torch.utils.sim3 import Sim3, sim3_pose_graph_optimize
-
-NEXT_SLICE = ("waits for the EuRoC stereo-inertial slice of the port "
-              "(ROADMAP Queue 1)")
-
 
 # ---------------------------------------------------------------------------
 # Hamming distance helpers (descriptor voting without DBoW2)
@@ -163,21 +164,14 @@ class SlamFrontend:
                  kf_min_interval: int = 3, kf_max_interval: int = 30,
                  kf_tracked_ratio: float = 0.6,
                  min_depth: float = 0.05, max_depth: float = 40.0,
-                 ba_window: int = 6,
+                 stereo_bf: float = 0.0, ba_window: int = 6,
                  match_radius: float = 16.0,
                  enable_loop_closing: bool = True,
                  loop_min_score: int = 60, loop_min_inliers: int = 25,
                  max_new_points_per_kf: int = 400,
                  async_local_mapping: bool = False,
-                 use_imu: bool = False, *, device):
-        if sensor == "stereo":
-            raise NotImplementedError("sensor='stereo' " + NEXT_SLICE)
-        if use_imu:
-            raise NotImplementedError("use_imu " + NEXT_SLICE)
-        if camera.has_distortion:
-            raise NotImplementedError("distorted cameras (rectification) "
-                                      + NEXT_SLICE)
-        assert sensor in ("rgbd", "mono")
+                 use_imu: bool = False, imu_calib=None, *, device):
+        assert sensor in ("rgbd", "stereo", "mono")
         self.camera = camera
         self.sensor = sensor
         self.device = torch.device(device)
@@ -185,13 +179,14 @@ class SlamFrontend:
         self._orb_stream = (torch.cuda.Stream(self.device)
                             if self.device.type == "cuda" else None)
         self.stage_times: dict[str, list[float]] = {
-            "orb": [], "match": [], "pnp": [], "ba": []}
+            "sgm": [], "orb": [], "match": [], "pnp": [], "ba": []}
         self.min_tracked = min_tracked
         self.kf_min_interval = kf_min_interval
         self.kf_max_interval = kf_max_interval
         self.kf_tracked_ratio = kf_tracked_ratio
         self.min_depth = min_depth
         self.max_depth = max_depth
+        self.stereo_bf = stereo_bf or camera.stereo_bf
         self.ba_window = ba_window
         self.match_radius = match_radius
         self.enable_loop_closing = enable_loop_closing
@@ -250,10 +245,42 @@ class SlamFrontend:
         # Verified loops and BA pose corrections are handed back to the
         # tracking thread and applied at the next frame boundary, so every
         # whole-map mutation stays single-threaded.
-        # The inertial frontend is not ported: these stay as the JAX
-        # frontend reports them without an IMU.
+        # --- Inertial state (IMU_MONOCULAR / IMU_STEREO / IMU_RGBD roles;
+        # reference: ORB-SLAM3 Tracking::PreintegrateIMU +
+        # LocalMapping::InitializeIMU, src/LocalMapping.cc:1187-1340).
+        # Preintegration + the visual-inertial init live in tracking/imu.py;
+        # the init's scale + gravity rotation are applied as a whole-map
+        # Sim3 on THIS thread at a frame boundary and forwarded to the
+        # mapper as the same ScaleRefinement op the reference pushes
+        # (LocalMapping.cc:1296-1305).
+        self.use_imu = use_imu
+        self.imu_calib = imu_calib if imu_calib is not None else ImuCalib()
         self.imu_initialized = False
+        self.imu_bias = ImuBias()
         self.num_scale_refinements = 0
+        self.imu_min_kfs = 10                  # nMinKF (LocalMapping.cc:1196)
+        self.imu_min_time = 2.0 if sensor == "mono" else 1.0
+        # Post-init repeated scale/gravity refinement (the reference keeps
+        # re-running the inertial estimation after the first init:
+        # LocalMapping::ScaleRefinement, LocalMapping.cc:1449-1510): each
+        # pass re-solves on the most recent keyframe window and applies the
+        # residual Sim3, so early-window visual gauge drift converges out.
+        self.imu_refine_interval = 1.0         # seconds between passes
+        self.imu_refine_until = 20.0           # stop refining after this
+        self._imu_init_t: Optional[float] = None
+        self._imu_last_scale_t: Optional[float] = None
+        self._imu_frame_pre = None             # since last frame
+        self._imu_kf_pre = None                # since last keyframe
+        self._imu_last_t: Optional[float] = None
+        self._imu_prev_pb: Optional[np.ndarray] = None  # body pos, last frame
+        self._imu_vel = np.zeros(3)            # world body velocity
+        self._imu_chain: list[int] = []        # temporally-ordered kf ids
+        self._kf_imu: dict[int, object] = {}   # kfid -> Preintegrated from
+        #                                        the previous chain kf
+        self._imu_chain_last = -1
+        self._imu_vel_version = -1             # _map_version at last FD vel
+        self._imu_last_frame_t: Optional[float] = None
+        self._kf_time: dict[int, float] = {}
 
         self.async_local_mapping = async_local_mapping
         self._lock = threading.RLock()
@@ -292,7 +319,19 @@ class SlamFrontend:
         return f.px, f.desc, f.resp
 
     def _depth_of(self, frame: Frame) -> Optional[np.ndarray]:
-        return frame.depth
+        if frame.depth is not None:
+            return frame.depth
+        if frame.right is not None and self.stereo_bf > 0:
+            t0 = time.perf_counter()
+            with (torch.cuda.stream(self._orb_stream) if self._orb_stream
+                  else contextlib.nullcontext()):
+                disp = stereo.disparity(frame.image, frame.right,
+                                        self.device)
+            self.stage_times["sgm"][-1] += time.perf_counter() - t0
+            with np.errstate(divide="ignore"):
+                depth = np.where(disp > 1.0, self.stereo_bf / disp, 0.0)
+            return depth.astype(np.float32)
+        return None
 
     def _depth_at(self, depth_map, px):
         cam = self.camera
@@ -1398,6 +1437,238 @@ class SlamFrontend:
                                 transform=np.eye(4, dtype=np.float32))
 
     # ------------------------------------------------------------------
+    # Inertial (IMU)
+    # ------------------------------------------------------------------
+
+    def _imu_ingest(self, frame) -> None:
+        """Fold the frame's IMU measurements (frame.imu = (stamps, accs,
+        gyros), covering the span since the previous frame) into the
+        frame-level and keyframe-level preintegrations (the role of
+        Tracking::PreintegrateIMU)."""
+        t = getattr(frame, "timestamp", None)
+        meas = getattr(frame, "imu", None)
+        if t is None:
+            return
+        if self._imu_frame_pre is None:
+            self._imu_frame_pre = Preintegrated(self.imu_bias,
+                                                self.imu_calib)
+        if self._imu_kf_pre is None:
+            self._imu_kf_pre = Preintegrated(self.imu_bias, self.imu_calib)
+        if meas is not None and self._imu_last_t is not None:
+            stamps, accs, gyros = meas
+            self._imu_frame_pre.integrate_span(stamps, accs, gyros,
+                                               self._imu_last_t, t)
+            self._imu_kf_pre.integrate_span(stamps, accs, gyros,
+                                            self._imu_last_t, t)
+        self._imu_last_t = t
+
+    def _imu_body_pose(self, tcw: np.ndarray) -> np.ndarray:
+        """T_wb of the IMU body for a world->camera pose."""
+        return se3_inverse(tcw) @ self.imu_calib.Tcb
+
+    def _imu_predict_tcw(self) -> Optional[np.ndarray]:
+        """IMU dead-reckoned pose prior for this frame (replaces the
+        constant-velocity model once the inertial state is initialized —
+        Tracking::PredictStateIMU)."""
+        pre = self._imu_frame_pre
+        if (not self.imu_initialized or pre is None or pre.dT <= 0.0
+                or self._imu_vel_version != self._map_version):
+            return None
+        Twb = self._imu_body_pose(self.tcw)
+        R2, _v2, p2 = pre.predict(Twb[:3, :3], self._imu_vel, Twb[:3, 3],
+                                  bias=self.imu_bias)
+        Twb2 = np.eye(4)
+        Twb2[:3, :3] = R2
+        Twb2[:3, 3] = p2
+        return se3_inverse(Twb2 @ self.imu_calib.Tbc)
+
+    def _imu_after_track(self, frame) -> None:
+        """Update the finite-difference world velocity after this frame's
+        pose is accepted, and reset the frame-level preintegration. The FD
+        velocity is only trusted while the map gauge is unchanged
+        (_map_version) — a loop correction or scale change invalidates it
+        for one frame."""
+        t = getattr(frame, "timestamp", None)
+        p_now = self._imu_body_pose(self.tcw)[:3, 3]
+        if (self._imu_prev_pb is not None and t is not None
+                and self._imu_last_frame_t is not None
+                and self._imu_vel_version == self._map_version):
+            dt = t - self._imu_last_frame_t
+            if dt > 1e-6:
+                self._imu_vel = (p_now - self._imu_prev_pb) / dt
+        self._imu_prev_pb = p_now
+        self._imu_last_frame_t = t
+        self._imu_vel_version = self._map_version
+        self._imu_frame_pre = Preintegrated(self.imu_bias, self.imu_calib)
+
+    def _imu_on_keyframe(self, frame) -> list:
+        """Record the keyframe-level preintegration on the temporal chain
+        (KeyFrame::mPrevKF / mpImuPreintegrated role) and attempt the
+        one-shot visual-inertial initialization."""
+        ops: list = []
+        kfid = self.last_kfid
+        if kfid == self._imu_chain_last:
+            return ops
+        if self._imu_chain_last >= 0 and self._imu_kf_pre is not None:
+            self._kf_imu[kfid] = self._imu_kf_pre
+        self._imu_chain.append(kfid)
+        self._imu_chain_last = kfid
+        self._imu_kf_pre = Preintegrated(self.imu_bias, self.imu_calib)
+        t = getattr(frame, "timestamp", None)
+        tk = t if t is not None else float(self._frame_idx)
+        self._kf_time[kfid] = tk
+        # Bound the chain bookkeeping: only a recent window is ever used.
+        if len(self._imu_chain) > 60:
+            for old in self._imu_chain[:-48]:
+                self._kf_imu.pop(old, None)
+                self._kf_time.pop(old, None)
+            self._imu_chain = self._imu_chain[-48:]
+        if not self.imu_initialized:
+            op = self._imu_try_initialize()
+            if op is not None:
+                ops.append(op)
+        elif (self._imu_init_t is not None
+              and tk - self._imu_init_t <= self.imu_refine_until
+              and (self._imu_last_scale_t is None
+                   or tk - self._imu_last_scale_t
+                   >= self.imu_refine_interval)):
+            op = self._imu_try_initialize(refine=True)
+            if op is not None:
+                ops.append(op)
+        return ops
+
+    def _imu_try_initialize(self, refine: bool = False):
+        """LocalMapping::InitializeIMU equivalent (re-derived estimation in
+        tracking/imu.py): gate on chain length + time span, estimate
+        (gyro bias, gravity, scale, velocities), apply the scaled rotation
+        to the WHOLE map on this thread (mutex-guarded, version-bumped like
+        every whole-map mutation here), and emit the ScaleRefinement op the
+        mapper consumes (LocalMapping.cc:1296-1305). With refine=True this
+        is the post-init ScaleRefinement pass (LocalMapping.cc:1449-1510):
+        same estimation on the recent window, applying the RESIDUAL Sim3
+        (expected scale ~ 1 once the gauge is metric)."""
+        if self._old_maps:
+            # Stashed sub-maps live in other gauges; a global Sim3 would be
+            # wrong for them (same rule as _maybe_normalize_scale).
+            return None
+        chain = [k for k in self._imu_chain if k in self.map.keyframes]
+        if len(chain) < self.imu_min_kfs:
+            return None
+        span = self._kf_time[chain[-1]] - self._kf_time[chain[0]]
+        if span < self.imu_min_time:
+            return None
+        # Merge preintegrations across culled keyframes (the reference's
+        # Preintegrated::MergePrevious): measurements concatenate exactly.
+        # ALSO subsample the chain to >= ~0.2 s spacing: the scale column of
+        # the init LS is the visual relative position (errors-in-variables),
+        # so pose noise ATTENUATES s toward zero as spacing shrinks —
+        # measured (tools/exp_imu_spacing.py): at 33 ms spacing 1e-4 pose
+        # noise drags s=5 to 3.4 and 5e-4 to 0.35, while >= 0.2 s stays
+        # within a few %. The reference's init window is ~0.2 s/KF too
+        # (nMinKF=10 over minTime=2 s, LocalMapping.cc:1196).
+        spacing = min(0.25, span / max(1, self.imu_min_kfs - 1))
+        preints, Rwb, pwb = [], [], []
+        pending_meas: list = []
+        prev_seen = None
+        t_kept = None
+        sel_kfs: list[int] = []
+        for k in self._imu_chain:
+            pre = self._kf_imu.get(k)
+            alive = k in self.map.keyframes
+            if prev_seen is None:
+                if alive:
+                    prev_seen = k
+                    t_kept = self._kf_time[k]
+                    sel_kfs.append(k)
+                    Twb = self._imu_body_pose(self.map.keyframes[k].tcw)
+                    Rwb.append(Twb[:3, :3])
+                    pwb.append(Twb[:3, 3])
+                continue
+            if pre is None:
+                pending_meas = []
+                continue
+            pending_meas.extend(pre._meas)
+            if alive and self._kf_time[k] - t_kept >= spacing - 1e-9:
+                merged = Preintegrated(self.imu_bias, self.imu_calib)
+                for acc, gyro, dt in pending_meas:
+                    merged.integrate(acc, gyro, dt)
+                preints.append(merged)
+                pending_meas = []
+                t_kept = self._kf_time[k]
+                sel_kfs.append(k)
+                Twb = self._imu_body_pose(self.map.keyframes[k].tcw)
+                Rwb.append(Twb[:3, :3])
+                pwb.append(Twb[:3, 3])
+        if (len(Rwb) < min(self.imu_min_kfs, 8)
+                or len(preints) != len(Rwb) - 1):
+            return None
+        # Keep only the most recent window: the early-map visual gauge
+        # drifts while triangulation/BA settle (measured 3x over the first
+        # ~1.5 s in tools/diag_imu_e2e.py), and a single-scale model over a
+        # drifting window extrapolates badly. The tail is the settled part.
+        tail = max(8, self.imu_min_kfs)
+        if len(Rwb) > tail:
+            Rwb, pwb = Rwb[-tail:], pwb[-tail:]
+            preints = preints[-(tail - 1):]
+            sel_kfs = sel_kfs[-tail:]
+        # Diagnostics hook (tools/diag_imu_e2e.py): the selected sub-chain.
+        self._imu_init_debug = {
+            "Rwb": [R.copy() for R in Rwb], "pwb": [p.copy() for p in pwb],
+            "preints": preints, "kfids": sel_kfs,
+            "times": [self._kf_time[k] for k in sel_kfs]}
+        res = initialize_imu(Rwb, pwb, preints,
+                             monocular=(self.sensor == "mono"))
+        t_now = self._kf_time[chain[-1]]
+        if refine:
+            # Residual correction: reject implausible jumps; skip (but mark
+            # the pass done) when the gauge is already within ~2 %. The
+            # gate is tight (+/-2x) because visual gauge drift between
+            # refine passes is ~10%/s (measured, tools/diag_imu_e2e.py) —
+            # a larger estimate is window-averaged gauge mixture, and
+            # applying it over-corrects the RECENT map the tracker uses.
+            if not res.ok or not (0.5 < res.scale < 2.0):
+                return None
+            self._imu_last_scale_t = t_now
+            rot_angle = float(np.linalg.norm(so3_log(res.Rwg)))
+            if abs(np.log(res.scale)) < 0.02 and rot_angle < 0.02:
+                return None
+        elif not res.ok or not (0.1 < res.scale < 100.0):
+            return None
+        s = float(res.scale)
+        Rgw = res.Rwg.T                     # rotates old world -> new
+        #                                     gravity-aligned world
+        with self._lock:
+            self._map_version += 1
+            n = self.map._n
+            self.map.xyz[:n] = s * (self.map.xyz[:n] @ Rgw.T)
+            for kf in self.map.keyframes.values():
+                kf.tcw[:3, :3] = kf.tcw[:3, :3] @ Rgw.T
+                kf.tcw[:3, 3] *= s
+            self.tcw[:3, :3] = self.tcw[:3, :3] @ Rgw.T
+            self.tcw[:3, 3] *= s
+            self.velocity[:3, 3] *= s
+            self.imu_bias = res.bias
+            self._imu_vel = s * (Rgw @ res.velocities[-1])
+            self._imu_prev_pb = self._imu_body_pose(self.tcw)[:3, 3]
+            self._imu_vel_version = self._map_version
+            self.imu_initialized = True
+            self.num_scale_refinements += 1
+            if not refine:
+                self._imu_init_t = t_now
+            self._imu_last_scale_t = t_now
+        # Re-express the in-flight accumulators at the estimated bias
+        # (exact re-integration of their raw measurements — dropping them
+        # would blind the next frame's IMU prediction).
+        if self._imu_frame_pre is not None:
+            self._imu_frame_pre.reintegrate(self.imu_bias)
+        if self._imu_kf_pre is not None:
+            self._imu_kf_pre.reintegrate(self.imu_bias)
+        T = np.eye(4, dtype=np.float32)
+        T[:3, :3] = Rgw.astype(np.float32)
+        return MappingOperation(kind=OprType.SCALE_REFINEMENT, scale=s,
+                                transform=T)
+
+    # ------------------------------------------------------------------
     # Relocalization
     # ------------------------------------------------------------------
 
@@ -1463,10 +1734,37 @@ class SlamFrontend:
     # Main entry
     # ------------------------------------------------------------------
 
+    def _rectify_frame(self, frame: Frame) -> Frame:
+        """Rectify a distorted (Brown-Conrady or KB8 fisheye) frame to the
+        pinhole view for tracking. The emitted MappingOperation still carries
+        the RAW image (the mapper undistorts it itself,
+        mapper.handle_new_keyframe — the reference's contract, where
+        ORB-SLAM3 hands raw images to gaussian_mapper.cpp:1014-1101, while
+        keypoint pixels are undistorted coords, KeyFrame.cc:1169-1196)."""
+        if not self.camera.has_distortion:
+            return frame
+        cam = self.camera
+
+        def chw(img):
+            if img is None:
+                return None
+            hwc = np.transpose(img, (1, 2, 0))
+            return np.transpose(cam.undistort_image(hwc), (2, 0, 1))
+
+        rect = Frame(image=chw(frame.image), quat_wxyz=frame.quat_wxyz,
+                     trans=frame.trans,
+                     depth=(cam.undistort_image(frame.depth)
+                            if frame.depth is not None else None),
+                     right=chw(frame.right), filename=frame.filename,
+                     timestamp=frame.timestamp)
+        rect.raw_image = frame.image
+        rect.imu = getattr(frame, "imu", None)
+        return rect
+
     def process_frame(self, frame: Frame) -> list[MappingOperation]:
         """Track one frame; returns the mapping operations to push."""
         t0 = time.perf_counter()
-        for stage in ("orb", "match", "pnp"):
+        for stage in ("sgm", "orb", "match", "pnp"):
             self.stage_times[stage].append(0.0)
         try:
             # Worker results (queued ops, BA pose fix, verified loop) land
@@ -1483,6 +1781,9 @@ class SlamFrontend:
 
     def _process_frame(self, frame: Frame) -> list[MappingOperation]:
         self._frame_idx += 1
+        frame = self._rectify_frame(frame)
+        if self.use_imu:
+            self._imu_ingest(frame)
         px, desc, resp = self._extract(frame)
         self._last_resp = resp
         self._frame_grid = None
@@ -1496,16 +1797,27 @@ class SlamFrontend:
             if self.sensor == "mono":
                 ops = self._init_mono(frame, px, desc)
                 self._append_traj(frame)
+                if self.use_imu and self.last_kfid != self._imu_chain_last:
+                    ops = (ops or []) + self._imu_on_keyframe(frame)
                 return ops if ops else []
             if depth_map is None or len(px) < 20:
                 self._append_traj(frame)
                 return []
             op = self._init_with_depth(frame, px, desc, depth_map)
             self._append_traj(frame)
-            return [op] if op else []
+            ops = [op] if op else []
+            if self.use_imu and self.last_kfid != self._imu_chain_last:
+                ops.extend(self._imu_on_keyframe(frame))
+            return ops
 
-        # Predicted pose (constant velocity); local-map tracking.
+        # Predicted pose; local-map tracking. Once the inertial state is
+        # initialized the IMU dead-reckoned prior replaces the constant-
+        # velocity model (Tracking::PredictStateIMU role).
         tcw_pred = self.velocity @ self.tcw
+        if self.use_imu:
+            imu_pred = self._imu_predict_tcw()
+            if imu_pred is not None:
+                tcw_pred = imu_pred
         mp_of_feat, n_match = self._timed("match", self._track_local_map,
                                           px, desc, tcw_pred)
         tcw = None
@@ -1548,6 +1860,8 @@ class SlamFrontend:
         self.tcw = tcw
         self._append_traj(frame)
         self.tracked_frames += 1
+        if self.use_imu:
+            self._imu_after_track(frame)
         tracked = int((mp_of_feat >= 0).sum())
 
         # Keyframe decision.
@@ -1570,7 +1884,11 @@ class SlamFrontend:
                 self.map.keyframes[self.last_kfid])
             if loop_op is not None:
                 ops.append(loop_op)
-        if self.sensor == "mono":
+        if self.use_imu and self.last_kfid != self._imu_chain_last:
+            ops.extend(self._imu_on_keyframe(frame))
+        if self.sensor == "mono" and not self.imu_initialized:
+            # After inertial init the gauge is METRIC and gravity-aligned;
+            # the unit-median-depth watchdog must not renormalize it.
             sr = self._maybe_normalize_scale()
             if sr is not None:
                 ops.append(sr)

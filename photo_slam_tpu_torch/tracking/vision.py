@@ -1,7 +1,9 @@
-"""The vision functions of the SLAM frontend, owned by the port.
+"""The vision functions of the SLAM frontend and the EuRoC loader, owned
+by the port.
 
-The JAX package's frontend calls OpenCV for these (photo_slam_tpu/tracking/
-frontend.py:161, :289-299, :430-438, :508-521, :827). The card's machine
+The JAX package calls OpenCV for these (photo_slam_tpu/tracking/
+frontend.py:161, :289-299, :430-438, :508-521, :827; photo_slam_tpu/io/
+datasets.py:341-343, 349-350, 379-382). The card's machine
 has no OpenCV, so the port implements them here with the same semantics,
 and the frontend reaches them only through this module (a test swaps in
 OpenCV's versions):
@@ -10,12 +12,18 @@ OpenCV's versions):
   * rodrigues / rodrigues_inverse: rotation vector <-> matrix;
   * triangulate_points: homogeneous DLT through an SVD per point;
   * solve_pnp_ransac: P3P minimal samples (a fourth point picks the root)
-    inside RANSAC, refined on the inliers by the native pose_optimize;
+    and, with a guess, five-point poses iterated from it (OpenCV's
+    iterative hypotheses) inside RANSAC; the best few refined on their
+    inliers by the native pose_optimize while the inliers grow;
   * find_essential_mat / recover_pose: the normalized 8-point algorithm
     inside RANSAC (Sampson error), the four decompositions and the
     cheirality test by triangulation;
   * orb_detect_and_compute: ORB with cv2.ORB_create's defaults, in plain
-    torch on a given device.
+    torch on a given device;
+  * stereo_rectify, init_undistort_rectify_map, remap_linear: the EuRoC
+    loader's rectification (cv2.stereoRectify with CALIB_ZERO_DISPARITY
+    and alpha 0, initUndistortRectifyMap, remap with INTER_LINEAR), with
+    undistort_points (cv2.undistortPoints' five fixed-point iterations).
 
 Every random draw comes from an np.random.Generator seeded per call, so a
 run repeats exactly. ORB computes in integers wherever OpenCV does (the
@@ -342,10 +350,69 @@ def _p3p(W, f):
     return R, t, valid
 
 
+PNP_REFINED = 10  # RANSAC hypotheses refined before the winner is taken
+PNP_LO_ROUNDS = 4  # refinements of each, while its inliers grow
+PNP_GUESS_SAMPLE = 5   # points per guess-seeded hypothesis (OpenCV's 5)
+PNP_GUESS_ITERS = 10   # Gauss-Newton steps from the guess per hypothesis
+
+
+def _batched_rotation(w) -> np.ndarray:
+    """Rotation matrices [B, 3, 3] of rotation vectors w [B, 3]."""
+    th = np.linalg.norm(w, axis=1)[:, None, None]
+    k = np.zeros((len(w), 3, 3))
+    k[:, 0, 1], k[:, 0, 2], k[:, 1, 2] = -w[:, 2], w[:, 1], -w[:, 0]
+    k = k - k.transpose(0, 2, 1)
+    small = th < 1e-8
+    ths = np.where(small, 1.0, th)
+    a = np.where(small, 1.0, np.sin(ths) / ths)
+    b = np.where(small, 0.5, (1 - np.cos(ths)) / ths ** 2)
+    return np.eye(3) + a * k + b * (k @ k)
+
+
+def _from_guess(obj, img, K, R0, t0, iters=PNP_GUESS_ITERS):
+    """Poses (R [B, 3, 3], t [B, 3]) fitted to each sample of points
+    (obj [B, k, 3], img [B, k, 2]) by damped Gauss-Newton on the pixel
+    error from the guess (R0, t0): the hypotheses of OpenCV's RANSAC with
+    SOLVEPNP_ITERATIVE and an extrinsic guess, which stay near the guess."""
+    nb = len(obj)
+    R = np.repeat(R0[None], nb, 0)
+    t = np.repeat(np.asarray(t0, np.float64).reshape(1, 3), nb, 0)
+    fx, fy = K[0, 0], K[1, 1]
+    for _ in range(iters):
+        Xc = obj @ R.transpose(0, 2, 1) + t[:, None]
+        z = np.where(np.abs(Xc[..., 2]) > 1e-9, Xc[..., 2], 1e-9)
+        x, y = Xc[..., 0], Xc[..., 1]
+        r = np.stack([fx * x / z + K[0, 2] - img[..., 0],
+                      fy * y / z + K[1, 2] - img[..., 1]], -1)
+        # d(pixel)/d(rotation, translation) of a left increment.
+        J = np.zeros(Xc.shape[:2] + (2, 6))
+        J[..., 0, 0] = -fx * x * y / z ** 2
+        J[..., 0, 1] = fx * (1 + x ** 2 / z ** 2)
+        J[..., 0, 2] = -fx * y / z
+        J[..., 1, 0] = -fy * (1 + y ** 2 / z ** 2)
+        J[..., 1, 1] = fy * x * y / z ** 2
+        J[..., 1, 2] = fy * x / z
+        J[..., 0, 3] = fx / z
+        J[..., 0, 5] = -fx * x / z ** 2
+        J[..., 1, 4] = fy / z
+        J[..., 1, 5] = -fy * y / z ** 2
+        J = J.reshape(nb, -1, 6)
+        Jt = J.transpose(0, 2, 1)
+        H = Jt @ J
+        g = (Jt @ r.reshape(nb, -1, 1))[..., 0]
+        H = H + 1e-6 * np.eye(6) * (np.trace(H, axis1=1, axis2=2)[:, None,
+                                                                    None] + 1)
+        step = -np.linalg.solve(H, g[..., None])[..., 0]
+        dR = _batched_rotation(step[:, :3])
+        R = dR @ R
+        t = (dR @ t[..., None])[..., 0] + step[:, 3:]
+    return R, t
+
+
 def _reprojection(R, t, obj, img, K):
     """Pixel errors [B, N] of poses R [B, 3, 3], t [B, 3] (inf behind the
     camera)."""
-    Xc = np.einsum("bij,nj->bni", R, obj) + t[:, None]
+    Xc = obj @ R.transpose(0, 2, 1) + t[:, None]
     z = Xc[..., 2]
     with np.errstate(divide="ignore", invalid="ignore"):
         u = K[0, 0] * Xc[..., 0] / z + K[0, 2]
@@ -359,12 +426,16 @@ def solve_pnp_ransac(obj, img, K, rvec0=None, tvec0=None,
                      iters: int = 100, seed: int = 0):
     """Camera pose from 3D-2D correspondences with outliers (the role of
     cv2.solvePnPRansac with SOLVEPNP_ITERATIVE): RANSAC over P3P minimal
-    samples of four points (three solve, the fourth picks the root), with
-    the guess (rvec0, tvec0) as one more hypothesis when use_guess; the
-    inliers are the points within `reproj_err` pixels. The best pose is
-    refined on its inliers by the native pose_optimize and the inliers are
-    taken again under it. Returns (ok, rvec [3, 1], tvec [3, 1], inliers
-    [M, 1] int32 or None)."""
+    samples of four points (three solve, the fourth picks the root); with
+    use_guess also the guess (rvec0, tvec0) itself and `iters` more
+    hypotheses iterated from it on samples of five points, as OpenCV's
+    iterative solver does; the inliers are the points within `reproj_err`
+    pixels. The PNP_REFINED hypotheses with the most inliers, and the
+    guess, are each refined on their inliers by the native pose_optimize,
+    their inliers taken again under the refined pose, and the one with the
+    most wins (local optimization: a quarter-inlier set can hand the most
+    raw inliers to a wrong pose). Returns (ok, rvec [3, 1], tvec [3, 1],
+    inliers [M, 1] int32 or None)."""
     obj = np.asarray(obj, np.float64).reshape(-1, 3)
     img = np.asarray(img, np.float64).reshape(-1, 2)
     K = np.asarray(K, np.float64)
@@ -373,6 +444,7 @@ def solve_pnp_ransac(obj, img, K, rvec0=None, tvec0=None,
     if n < 4:
         return fail
     rng = np.random.default_rng(seed)
+    guess = use_guess and rvec0 is not None and tvec0 is not None
     idx = _samples(rng, n, 4, iters)
     bear = np.concatenate([_normalized(img, K), np.ones((n, 1))], 1)
     bear /= np.linalg.norm(bear, axis=1, keepdims=True)
@@ -386,28 +458,213 @@ def solve_pnp_ransac(obj, img, K, rvec0=None, tvec0=None,
     k = np.argmin(e4, axis=1)
     has = np.isfinite(e4[np.arange(len(k)), k])
     R, t = R[np.arange(len(k)), k][has], t[np.arange(len(k)), k][has]
-    if use_guess and rvec0 is not None and tvec0 is not None:
-        R = np.concatenate([rodrigues(rvec0)[None], R])
-        t = np.concatenate([np.asarray(tvec0, np.float64).reshape(1, 3), t])
+    if guess:
+        R0 = rodrigues(rvec0)
+        t0 = np.asarray(tvec0, np.float64).reshape(1, 3)
+        R, t = np.concatenate([R0[None], R]), np.concatenate([t0, t])
+        if n >= PNP_GUESS_SAMPLE:
+            # OpenCV's hypotheses with an extrinsic guess: each sample's
+            # pose iterated from the guess, which stay near it (samples
+            # from a generator of their own).
+            idx = _samples(np.random.default_rng(seed + 1), n,
+                           PNP_GUESS_SAMPLE, iters)
+            Rg, tg = _from_guess(obj[idx], img[idx], K, R0, t0)
+            ok = np.isfinite(Rg).all((1, 2)) & np.isfinite(tg).all(1)
+            R, t = np.concatenate([R, Rg[ok]]), np.concatenate([t, tg[ok]])
+    return _pnp_best(R, t, obj, img, K, reproj_err, guess, fail)
+
+
+def _pnp_best(R, t, obj, img, K, reproj_err, guess, fail):
+    """The RANSAC winner among the hypotheses (R [B, 3, 3], t [B, 3];
+    with `guess` the first is the guess), refined on its inliers."""
     if len(R) == 0:
         return fail
     inliers = _reprojection(R, t, obj, img, K) < reproj_err
-    j = int(np.argmax(inliers.sum(1)))
-    inl = inliers[j]
-    if inl.sum() < 4:
-        return fail
-    T = np.eye(4)
-    T[:3, :3], T[:3, 3] = R[j], t[j]
-    _, T, _ = pose_optimize(obj[inl], img[inl], K[0, 0], K[1, 1], K[0, 2],
-                            K[1, 2], T)
-    refined = _reprojection(T[None, :3, :3], T[None, :3, 3], obj, img,
-                            K)[0] < reproj_err
-    if refined.sum() >= inl.sum():
-        inl = refined
-    else:
+    counts = inliers.sum(1)
+    # Local optimization: the best hypotheses, and the guess, are each
+    # refined on their own inliers before the winner is taken.
+    cands = list(np.argsort(-counts, kind="stable")[:PNP_REFINED])
+    if guess and 0 not in cands:
+        cands.append(0)
+    best = None
+    for j in cands:
+        inl = inliers[j]
+        if inl.sum() < 4:
+            continue
+        T = np.eye(4)
         T[:3, :3], T[:3, 3] = R[j], t[j]
+        # Refined again on the inliers of its refinement while they grow.
+        for _ in range(PNP_LO_ROUNDS):
+            _, T2, _ = pose_optimize(obj[inl], img[inl], K[0, 0], K[1, 1],
+                                     K[0, 2], K[1, 2], T)
+            refined = _reprojection(T2[None, :3, :3], T2[None, :3, 3], obj,
+                                    img, K)[0] < reproj_err
+            if refined.sum() < inl.sum():
+                break
+            grew = refined.sum() > inl.sum()
+            T, inl = T2, refined
+            if not grew:
+                break
+        if best is None or inl.sum() > best[1].sum():
+            best = (T, inl)
+    if best is None:
+        return fail
+    T, inl = best
     return (True, rodrigues_inverse(T[:3, :3]), T[:3, 3].reshape(3, 1),
             np.nonzero(inl)[0].astype(np.int32).reshape(-1, 1))
+
+
+# ---------------------------------------------------------------------------
+# Stereo rectification (cv2.stereoRectify, initUndistortRectifyMap, remap)
+# ---------------------------------------------------------------------------
+
+def _brown_conrady(dist) -> "Camera":
+    """A pinhole camera holding radial-tangential coefficients (k1 k2 p1
+    p2 [k3]), for its _distort_normalized."""
+    from photo_slam_tpu_torch.models.camera import PINHOLE, Camera
+
+    d = np.zeros(5)
+    coeffs = np.asarray(dist, np.float64).reshape(-1)[:5]
+    d[:len(coeffs)] = coeffs
+    return Camera(camera_id=0, model_id=PINHOLE, width=1, height=1, fx=1.0,
+                  fy=1.0, cx=0.0, cy=0.0, dist_coeffs=d)
+
+
+def undistort_points(px, K, dist, R=None, P=None,
+                     iters: int = 5) -> np.ndarray:
+    """cv2.undistortPoints: pixels [N, 2] -> ideal points [N, 2], normalized
+    or, with P, in P's pixels after the rotation R. The distortion is
+    inverted by OpenCV's fixed-point iteration, stopped after `iters` (5,
+    its default) as OpenCV stops it."""
+    px = np.asarray(px, np.float64).reshape(-1, 2)
+    d = _brown_conrady(dist).dist_coeffs
+    k1, k2, p1, p2, k3 = d
+    x0 = (px[:, 0] - K[0, 2]) / K[0, 0]
+    y0 = (px[:, 1] - K[1, 2]) / K[1, 1]
+    x, y = x0.copy(), y0.copy()
+    if np.any(d != 0):
+        for _ in range(iters):
+            r2 = x * x + y * y
+            icdist = 1.0 / (1 + ((k3 * r2 + k2) * r2 + k1) * r2)
+            dx = 2 * p1 * x * y + p2 * (r2 + 2 * x * x)
+            dy = p1 * (r2 + 2 * y * y) + 2 * p2 * x * y
+            x, y = (x0 - dx) * icdist, (y0 - dy) * icdist
+    RR = np.eye(3) if R is None else np.asarray(R, np.float64)
+    if P is not None:
+        RR = np.asarray(P, np.float64)[:3, :3] @ RR
+    w = 1.0 / (RR[2, 0] * x + RR[2, 1] * y + RR[2, 2])
+    return np.stack([(RR[0, 0] * x + RR[0, 1] * y + RR[0, 2]) * w,
+                     (RR[1, 0] * x + RR[1, 1] * y + RR[1, 2]) * w], 1)
+
+
+def _inner_outer(K, dist, R, P, size):
+    """The rectangles inside and around a 9 x 9 grid over the image's
+    pixel centres (0 to w - 1, 0 to h - 1) mapped through undistortion, R
+    and P (OpenCV's getUndistortRectangles, in float64)."""
+    w, h = size
+    g = np.arange(9, dtype=np.float64) / 8
+    gx, gy = np.meshgrid(g * (w - 1), g * (h - 1))
+    u = undistort_points(np.stack([gx.ravel(), gy.ravel()], 1), K, dist, R,
+                         P).reshape(9, 9, 2)
+    inner = (u[:, 0, 0].max(), u[0, :, 1].max(), u[:, 8, 0].min(),
+             u[8, :, 1].min())
+    outer = (u[..., 0].min(), u[..., 1].min(), u[..., 0].max(),
+             u[..., 1].max())
+    return inner, outer
+
+
+def stereo_rectify(K0, D0, K1, D1, size, R, T):
+    """cv2.stereoRectify(K0, D0, K1, D1, size, R, T,
+    flags=CALIB_ZERO_DISPARITY, alpha=0)[:4]: the rotations R1, R2 that
+    make the two views' rows epipolar lines (half of R each, then the
+    baseline onto x) and the projections P1, P2 [3, 4] with one focal
+    length and one principal point, scaled so that every rectified pixel
+    of both views comes from inside its image (alpha 0)."""
+    K0, K1 = np.asarray(K0, np.float64), np.asarray(K1, np.float64)
+    R = np.asarray(R, np.float64)
+    T = np.asarray(T, np.float64).reshape(3)
+    w, h = size
+    r_half = rodrigues(rodrigues_inverse(R).reshape(3) * -0.5)
+    t = r_half @ T
+    idx = 0 if abs(t[0]) > abs(t[1]) else 1
+    c, nt = t[idx], np.linalg.norm(t)
+    uu = np.zeros(3)
+    uu[idx] = 1.0 if c > 0 else -1.0
+    ww = np.cross(t, uu)
+    nw = np.linalg.norm(ww)
+    if nw > 0:
+        ww *= np.arccos(abs(c) / nt) / nw
+    wR = rodrigues(ww)
+    R1 = wR @ r_half.T
+    R2 = wR @ r_half
+    t = R2 @ T
+    fc = (K0[idx ^ 1, idx ^ 1] + K1[idx ^ 1, idx ^ 1]) * 0.5
+    corners = np.array([[0, 0], [w - 1, 0], [0, h - 1], [w - 1, h - 1]],
+                       np.float32)
+    cc = []
+    for K, D, Rk in ((K0, D0, R1), (K1, D1, R2)):
+        n = undistort_points(corners, K, D).astype(np.float32)
+        X = np.concatenate([n, np.ones((4, 1), np.float32)], 1).astype(
+            np.float64) @ rodrigues(rodrigues_inverse(Rk)).T
+        proj = (fc * X[:, :2] / X[:, 2:]).astype(np.float32)
+        avg = proj.astype(np.float64).mean(0)
+        cc.append(((w - 1) / 2 - avg[0], (h - 1) / 2 - avg[1]))
+    cx = (cc[0][0] + cc[1][0]) * 0.5
+    cy = (cc[0][1] + cc[1][1]) * 0.5
+    P1 = np.array([[fc, 0, cx, 0], [0, fc, cy, 0], [0, 0, 1, 0]])
+    P2 = P1.copy()
+    P2[idx, 3] = t[idx] * fc
+    s = 0.0
+    for K, D, Rk, P in ((K0, D0, R1, P1), (K1, D1, R2, P2)):
+        (ix0, iy0, ix1, iy1), _ = _inner_outer(K, D, Rk, P, size)
+        s = max(s, cx / (cx - ix0), cy / (cy - iy0),
+                (w - 1 - cx) / (ix1 - cx), (h - 1 - cy) / (iy1 - cy))
+    for P in (P1, P2):
+        P[0, 0] = P[1, 1] = fc * s
+    P2[idx, 3] *= s
+    return R1, R2, P1, P2
+
+
+def init_undistort_rectify_map(K, dist, R, P, size):
+    """cv2.initUndistortRectifyMap(K, dist, R, P, size, CV_32FC1): for each
+    rectified pixel, the source pixel (map_x, map_y) [h, w] float32 in the
+    distorted image (radial-tangential)."""
+    w, h = size
+    iR = np.linalg.inv(np.asarray(P, np.float64)[:3, :3]
+                       @ np.asarray(R, np.float64))
+    v, u = np.mgrid[0:h, 0:w].astype(np.float64)
+    X = iR[0, 0] * u + iR[0, 1] * v + iR[0, 2]
+    Y = iR[1, 0] * u + iR[1, 1] * v + iR[1, 2]
+    Wt = iR[2, 0] * u + iR[2, 1] * v + iR[2, 2]
+    xd, yd = _brown_conrady(dist)._distort_normalized(X / Wt, Y / Wt)
+    K = np.asarray(K, np.float64)
+    return ((K[0, 0] * xd + K[0, 2]).astype(np.float32),
+            (K[1, 1] * yd + K[1, 2]).astype(np.float32))
+
+
+def remap_linear(img: np.ndarray, map_x: np.ndarray,
+                 map_y: np.ndarray) -> np.ndarray:
+    """cv2.remap(img, map_x, map_y, INTER_LINEAR) of a float32 [H, W] or
+    [H, W, C] image with float32 maps, border constant 0: the bilinear
+    blend of the four neighbours of each source position (OpenCV 5 blends
+    float images at the maps' exact positions; earlier versions rounded
+    them to 1/32 px), a neighbour outside the image counting as 0."""
+    img = np.asarray(img, np.float32)
+    h, w = img.shape[:2]
+    mx = np.asarray(map_x, np.float64)
+    my = np.asarray(map_y, np.float64)
+    x0, y0 = np.floor(mx).astype(np.int64), np.floor(my).astype(np.int64)
+    fx, fy = mx - x0, my - y0
+    weights = ((1 - fy) * (1 - fx), (1 - fy) * fx, fy * (1 - fx), fy * fx)
+    out = 0.0
+    for (dy, dx), wt in zip(((0, 0), (0, 1), (1, 0), (1, 1)), weights):
+        yy, xx = y0 + dy, x0 + dx
+        inside = (xx >= 0) & (xx < w) & (yy >= 0) & (yy < h)
+        v = img[yy.clip(0, h - 1), xx.clip(0, w - 1)]
+        if img.ndim == 3:
+            inside, wt = inside[..., None], wt[..., None]
+        out = out + np.where(inside, v, 0.0) * wt
+    return np.asarray(out, np.float32)
 
 
 # ---------------------------------------------------------------------------

@@ -16,11 +16,12 @@ pipeline (no covisibility-graph local BA, no DBoW2 loop detection yet):
     (exactly what ORB-SLAM3's hooks provide the reference mapper:
     KeyFrame::GetKeypointInfo + MapPoint colors, SURVEY.md §2.4).
 
-Counterpart of photo_slam_tpu/tracking/vo_tracker.py for RGB-D: ORB and
-PnP come from the port's tracking/vision.py (ORB in torch on `device`),
-OpenCV's brute-force Hamming matcher becomes hamming_matrix and an argsort.
-Stereo depth (OpenCV's SGBM in the JAX package) waits for the EuRoC
-stereo-inertial slice of the port: a stereo frame raises.
+Depth comes from the RGBD sensor directly or from stereo SGM disparity.
+
+Counterpart of photo_slam_tpu/tracking/vo_tracker.py: ORB and PnP come
+from the port's tracking/vision.py (ORB in torch on `device`), OpenCV's
+brute-force Hamming matcher becomes hamming_matrix and an argsort, and
+OpenCV's SGBM the port's SGM on `device` (ops/stereo.py).
 """
 from __future__ import annotations
 
@@ -35,8 +36,9 @@ from photo_slam_tpu_torch.mapper.mapping_ops import (KeyframeData,
                                                      MappingOperation, OprType)
 from photo_slam_tpu_torch.models.camera import Camera
 from photo_slam_tpu_torch.native import pose_optimize
+from photo_slam_tpu_torch.ops import stereo
 from photo_slam_tpu_torch.tracking import vision
-from photo_slam_tpu_torch.tracking.frontend import NEXT_SLICE, hamming_matrix
+from photo_slam_tpu_torch.tracking.frontend import hamming_matrix
 from photo_slam_tpu_torch.tracking.gt_tracker import Frame
 from photo_slam_tpu_torch.utils.math import (rotmat_to_quat_numpy,
                                              se3_inverse, se3_matrix)
@@ -67,8 +69,8 @@ class OrbVoTracker:
                  kf_max_translation: float = 0.25,
                  kf_max_rotation_deg: float = 15.0,
                  kf_min_interval: int = 5,
-                 min_depth: float = 0.05, max_depth: float = 40.0, *,
-                 device):
+                 min_depth: float = 0.05, max_depth: float = 40.0,
+                 stereo_bf: float = 0.0, *, device):
         self.camera = camera
         self.num_features = num_features
         self.device = torch.device(device)
@@ -79,6 +81,7 @@ class OrbVoTracker:
         self.kf_min_interval = kf_min_interval
         self.min_depth = min_depth
         self.max_depth = max_depth
+        self.stereo_bf = stereo_bf or camera.stereo_bf
 
         self.ref: Optional[TrackState] = None
         self.tcw = np.eye(4)
@@ -101,9 +104,14 @@ class OrbVoTracker:
         return vision.rgb_to_gray(u8)
 
     def _depth_of(self, frame: Frame) -> Optional[np.ndarray]:
-        if frame.depth is None and frame.right is not None:
-            raise NotImplementedError("stereo depth " + NEXT_SLICE)
-        return frame.depth
+        if frame.depth is not None:
+            return frame.depth
+        if frame.right is not None and self.stereo_bf > 0:
+            disp = stereo.disparity(frame.image, frame.right, self.device)
+            with np.errstate(divide="ignore"):
+                depth = np.where(disp > 1.0, self.stereo_bf / disp, 0.0)
+            return depth.astype(np.float32)
+        return None
 
     def _extract(self, frame: Frame):
         f = vision.orb_detect_and_compute(self._to_gray(frame.image),

@@ -6,7 +6,9 @@ chain; and k1_cull_counts and k2_cull_counts, K1's and K2's warp skips,
 against a count made warp by warp with the kernels' own thread-to-pixel
 map, as is tools/time_blend.py's share of stopping pixels and warps; and
 the online phase's helpers: its in-memory sequence (tools/synth_replica.py)
-and the correction ops it makes and its CPU twin."""
+and the correction ops it makes and its CPU twin; and the euroc phase's:
+the gravity angle, the share of disparities near the truth, the sgm
+kernel's bound and its row of the `kernels` line."""
 import numpy as np
 import pytest
 import torch
@@ -399,3 +401,76 @@ def test_keypoint_agreement():
     assert cs.keypoint_agreement(a, d)[0] == pytest.approx(
         1 - 1 / len(a.px))
     assert cs.ms_stats([0.001, 0.002]).startswith("1.500 / ")
+
+
+# ---------------------------------------------------------------------------
+# The euroc phase's helpers: the gravity angle, the true-disparity share,
+# the sgm kernel's bound and its row of the `kernels` line.
+# ---------------------------------------------------------------------------
+
+def test_gravity_error_deg():
+    from photo_slam_tpu_torch.tracking.imu import so3_exp
+
+    def op_rotation(axis_angle):
+        T = np.eye(4, dtype=np.float32)
+        T[:3, :3] = so3_exp(np.asarray(axis_angle, np.float64))
+        return T
+
+    # The first camera's frame is the truth's world: no rotation, no error.
+    assert cs.gravity_error_deg([np.eye(4)], np.eye(3)) == pytest.approx(
+        0.0, abs=1e-6)
+    # An op that tilts the world by 5 degrees about x, against a truth
+    # that needs none.
+    assert cs.gravity_error_deg([op_rotation([np.radians(5), 0, 0])],
+                                np.eye(3)) == pytest.approx(5.0, abs=1e-4)
+    # Two ops compose; a first camera rotated by the same tilt is right.
+    tilt = so3_exp(np.array([0.0, np.radians(3), 0.0]))
+    ops = [op_rotation([0.0, np.radians(1), 0.0]),
+           op_rotation([0.0, np.radians(2), 0.0])]
+    assert cs.gravity_error_deg(ops, tilt.T) == pytest.approx(0.0,
+                                                              abs=1e-4)
+    assert cs.gravity_error_deg(ops, np.eye(3)) == pytest.approx(3.0,
+                                                                 abs=1e-4)
+    # A rotation about the gravity axis does not change the direction.
+    assert cs.gravity_error_deg([op_rotation([0, 0, 0.7])],
+                                np.eye(3)) == pytest.approx(0.0, abs=1e-4)
+
+
+def test_true_disparity_share():
+    depth = np.full((4, 5), 5.0)
+    disp = np.full((4, 5), 458.0 * 0.11 / 5.0)
+    disp[0] = -1.0                  # invalid: not counted
+    disp[1, :2] += 1.5              # valid, beyond 1 px
+    disp[2, 0] += 0.9               # valid, within
+    share, valid = cs.true_disparity_share(disp, depth, 458.0, 0.11)
+    assert valid == pytest.approx(15 / 20)
+    assert share == pytest.approx(13 / 15)
+    assert cs.true_disparity_share(np.full((2, 2), -1.0), depth[:2, :2],
+                                   458.0, 0.11) == (0.0, 0.0)
+
+
+def test_sgm_bound_and_row():
+    """The bound prices EuRoC's volume by its bytes (int16 read, int32
+    written, 0.0686 ms at 3.35 TB/s); the row has every key of the
+    contract."""
+    ms, by = cs.sgm_bound(480, 752 - 128)
+    n = 480 * 624 * 128
+    assert by == "bytes" and ms == pytest.approx(1e3 * 6 * n / 3.35e12)
+    assert cs.SGM_PATHS * cs.SGM_OPS_PER_STEP * n / cs.PEAK_F32_FLOPS < \
+        6 * n / cs.PEAK_BYTES
+    paths = {"train": {"blend_fwd": 23}, "euroc": {"sgm": 120,
+                                                   "blend_fwd": 1040}}
+    row = cs.kernel_row(paths, "sgm", "photo_slam_tpu_torch/csrc/sgm.cu",
+                        "photo_slam_tpu/mapper/mapper.py:342", 120, 0, 0.5,
+                        900.0, (ms, by), None, replaces_what=cs.SGM_REPLACES,
+                        launches_per_frame=1.0)
+    for key in ("name", "route", "source", "replaces", "launches",
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms"):
+        assert key in row, key
+    assert row["route"] == "cuda" and row["library_ms"] is None
+    assert row["launches_by_path"] == {"train": 0, "euroc": 120}
+    assert row["bound_ms"] == ms and row["bound_by"] == "bytes"
+    assert "StereoSGBM" in row["replaces_what"]
+    assert cs.EUROC_ATE_M == 0.05 and cs.EUROC_FRAMES == 120
+    assert cs.EUROC_ITERS == cs.ONLINE_ITERS == 1000

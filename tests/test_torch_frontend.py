@@ -3,9 +3,12 @@ frontend.py) against the JAX package's, and the JAX tests' scenarios with
 the port's own vision functions.
 
 Held against JAX through the shared op stream: with OpenCV's functions
-swapped into photo_slam_tpu_torch.tracking.vision (cv2_vision), the port's
-and the JAX package's SlamFrontend see the same rendered sequences (RGB-D,
-mono, and the out-and-back pan with injected drift that closes a loop) and
+swapped into photo_slam_tpu_torch.tracking.vision and OpenCV's SGBM into
+photo_slam_tpu_torch.ops.stereo (cv2_vision), the port's and the JAX
+package's SlamFrontend see the same rendered sequences (RGB-D, mono, the
+out-and-back pan with injected drift that closes a loop, a stereo-inertial
+sequence with an exact 200 Hz IMU whose initialization emits a
+SCALE_REFINEMENT, and the RGB-D sequence through a distorted camera) and
 must give trajectories within 1e-9, the same keyframe ids and the same
 MappingOperation stream: kinds, keyframes, point counts and payloads,
 compared after the port's save_stream and the JAX load_stream.
@@ -20,15 +23,20 @@ import pytest
 from photo_slam_tpu.mapper import mapping_ops as jops
 from photo_slam_tpu.models.camera import Camera as JCamera
 from photo_slam_tpu.tracking.frontend import SlamFrontend as JFrontend
+from photo_slam_tpu_torch.io.datasets import imu_span
 from photo_slam_tpu_torch.mapper import mapping_ops
 from photo_slam_tpu_torch.mapper.mapping_ops import OprType
 from photo_slam_tpu_torch.models.camera import PINHOLE, Camera
+from photo_slam_tpu_torch.ops import stereo
+from photo_slam_tpu_torch.tools import synth_euroc
 from photo_slam_tpu_torch.tracking import vision
 from photo_slam_tpu_torch.tracking.frontend import (SlamFrontend,
                                                     match_descriptors)
 from photo_slam_tpu_torch.tracking.gt_tracker import Frame
+from photo_slam_tpu_torch.tracking.imu import ImuCalib
 from photo_slam_tpu_torch.utils.evaluate import ate_rmse
-from photo_slam_tpu_torch.utils.math import (se3_exp_numpy, se3_inverse,
+from photo_slam_tpu_torch.utils.math import (rotmat_to_quat_numpy,
+                                             se3_exp_numpy, se3_inverse,
                                              se3_log_numpy)
 from photo_slam_tpu_torch.utils.sim3 import Sim3
 from test_torch_blend import one_torch_thread  # noqa: F401
@@ -147,6 +155,57 @@ def mono_sequence():
                          depth=False)
 
 
+STEREO_B = 0.11       # stereo baseline (m): ~5.7 px of disparity on the plane
+STEREO_HZ = 8         # frames 1/8 s apart: 10 keyframes span the 1 s the
+#                       stereo-inertial initialization waits for
+
+
+def stereo_pose(t):
+    """(R world->camera, camera centre) at t seconds: a sway in front of
+    the textured plane with a small yaw and pitch."""
+    R = yaw(0.06 * np.sin(1.5 * t)) @ np.array(
+        [[1, 0, 0], [0, np.cos(0.04 * np.sin(2.3 * t)),
+                     -np.sin(0.04 * np.sin(2.3 * t))],
+         [0, np.sin(0.04 * np.sin(2.3 * t)),
+          np.cos(0.04 * np.sin(2.3 * t))]])
+    c = np.array([0.3 * np.sin(1.2 * t), 0.1 * np.sin(2.1 * t),
+                  0.15 * np.sin(0.9 * t)])
+    return R, c
+
+
+@pytest.fixture(scope="module")
+def stereo_inertial_sequence():
+    return stereo_inertial_frames()
+
+
+def stereo_inertial_frames(n=14):
+    """Stereo frames of the textured plane (right eye STEREO_B along the
+    left's x axis) at STEREO_HZ with tools/synth_euroc.py's exact 200 Hz
+    IMU along the same trajectory and EurocDataset's per-frame spans."""
+    world = textured_world(seed=4)
+    cam = make_camera()
+    cam.stereo_bf = F * STEREO_B
+    times_ns = [synth_euroc.T0_NS + int(round(i / STEREO_HZ * 1e9))
+                for i in range(n)]
+    stamps, gyro, acc = synth_euroc.imu_samples((n - 1) / STEREO_HZ,
+                                                stereo_pose)
+    frames, gt = [], []
+    for i, ts in enumerate(times_ns):
+        imu = imu_span(stamps * 1e-9, acc, gyro,
+                       times_ns[i - 1] * 1e-9 if i else None, ts * 1e-9,
+                       synth_euroc.IMU_HZ)
+        R, c = stereo_pose(i / STEREO_HZ)
+        T = np.eye(4)
+        T[:3, :3], T[:3, 3] = R, -R @ c
+        frames.append(Frame(
+            image=splat_render(world, R, -R @ c),
+            quat_wxyz=rotmat_to_quat_numpy(R), trans=-R @ c,
+            right=splat_render(world, R, -R @ (c + R.T @ [STEREO_B, 0, 0])),
+            filename=f"f{i}", timestamp=ts * 1e-9, imu=imu))
+        gt.append(T)
+    return cam, frames, np.array(gt)
+
+
 @pytest.fixture(scope="module")
 def pan_loop():
     """tests/test_loop_closing.py's yaw pan out (0 -> 1.15 rad) and back."""
@@ -212,6 +271,11 @@ def cv2_vision(monkeypatch):
                 E, p0, p1, K, mask=mask),
             "triangulate_points": cv2.triangulatePoints}.items():
         monkeypatch.setattr(vision, name, fn)
+    monkeypatch.setattr(
+        stereo, "disparity_u8", lambda left, right, device:
+        cv2.StereoSGBM_create(minDisparity=0, numDisparities=128,
+                              blockSize=5).compute(left, right).astype(
+                                  np.float32) / 16.0)
 
 
 # ---------------------------------------------------------------------------
@@ -271,12 +335,20 @@ def run_loop_scenario(fe, frames, async_=False):
     return ops
 
 
-def both_frontends(frames, kw, drive):
+def both_frontends(frames, kw, drive, cam_kw=None, calib=None):
     """Run the JAX and the port's SlamFrontend (OpenCV's RNG seeded alike)
-    through `drive(fe, frames)` -> ([jax ops], [port ops], jax, port)."""
+    through `drive(fe, frames)` -> ([jax ops], [port ops], jax, port).
+    `cam_kw` sets camera fields, `calib` an ImuCalib's fields."""
+    from photo_slam_tpu.tracking.imu import ImuCalib as JImuCalib
+
     out = []
-    for cls, cam, extra in ((JFrontend, make_camera(JCamera), {}),
-                            (SlamFrontend, make_camera(), {"device": "cpu"})):
+    for cls, cam, imu_cls, extra in (
+            (JFrontend, make_camera(JCamera), JImuCalib, {}),
+            (SlamFrontend, make_camera(), ImuCalib, {"device": "cpu"})):
+        for k, v in (cam_kw or {}).items():
+            setattr(cam, k, v)
+        if calib is not None:
+            extra = dict(extra, imu_calib=imu_cls(**calib))
         cv2.setRNGSeed(7)
         fe = cls(cam, **kw, **extra)
         out.append((drive(fe, frames), fe))
@@ -339,6 +411,47 @@ def test_parity_with_jax(sensor, rgbd_sequence, mono_sequence, cv2_vision,
     assert_same_stream(tmp_path, jops_, tops)
 
 
+def test_parity_with_jax_stereo_inertial(stereo_inertial_sequence,
+                                         cv2_vision, tmp_path):
+    """sensor="stereo" with the IMU: depth from SGBM, preintegration, the
+    visual-inertial initialization and its SCALE_REFINEMENT op (scale and
+    gravity rotation), then IMU-predicted tracking."""
+    cam, frames, _ = stereo_inertial_sequence
+    kw = dict(sensor="stereo", kf_min_interval=1, kf_tracked_ratio=2.0,
+              enable_loop_closing=False, use_imu=True)
+    calib = dict(Tbc=np.eye(4), freq=200.0, **synth_euroc.IMU_NOISE)
+    jops_, tops, jfe, tfe = both_frontends(
+        frames, kw, drive_all, {"stereo_bf": cam.stereo_bf}, calib)
+    assert tfe.imu_initialized and jfe.imu_initialized
+    assert tfe.num_scale_refinements == jfe.num_scale_refinements >= 1
+    refine = [o for o in tops if o.kind == OprType.SCALE_REFINEMENT]
+    jrefine = [o for o in jops_
+               if o.kind.value == OprType.SCALE_REFINEMENT.value]
+    assert len(refine) == len(jrefine) >= 1
+    for a, b in zip(refine, jrefine):
+        assert abs(a.scale - b.scale) <= TRAJ_TOL
+        np.testing.assert_allclose(a.transform, b.transform, rtol=0,
+                                   atol=TRAJ_TOL)
+    np.testing.assert_allclose(tfe.imu_bias.bg, jfe.imu_bias.bg, rtol=0,
+                               atol=TRAJ_TOL)
+    assert_same_run(jfe, tfe)
+    assert_same_stream(tmp_path, jops_, tops)
+
+
+def test_parity_with_jax_distorted_camera(rgbd_sequence, cv2_vision,
+                                          tmp_path):
+    """A radial-tangential camera: each frame (and its depth) goes through
+    _rectify_frame's undistortion; the ops carry the raw image."""
+    _, frames, _ = rgbd_sequence
+    dist = np.array([0.012, -0.004, 0.0005, -0.0003, 0.0], np.float32)
+    kw = dict(sensor="rgbd", kf_min_interval=1, kf_tracked_ratio=2.0)
+    jops_, tops, jfe, tfe = both_frontends(frames, kw, drive_all,
+                                           {"dist_coeffs": dist})
+    assert tfe.camera.has_distortion and len(tfe.map.keyframes) >= 4
+    assert_same_run(jfe, tfe)
+    assert_same_stream(tmp_path, jops_, tops)
+
+
 def test_parity_with_jax_loop_closing(pan_loop, cv2_vision, tmp_path):
     _, frames, _ = pan_loop
     kw = dict(sensor="rgbd", kf_min_interval=1, kf_tracked_ratio=2.0,
@@ -376,13 +489,18 @@ def test_match_descriptors():
 
 
 def test_refuses_what_waits_for_the_next_slice():
+    """Nothing of the frontend waits for a later slice any more: the
+    stereo sensor, the IMU and distorted cameras are accepted; a sensor
+    the JAX frontend does not know is refused as there."""
     cam = make_camera()
-    for kw in ({"sensor": "stereo"}, {"use_imu": True}):
-        with pytest.raises(NotImplementedError, match="stereo-inertial"):
-            frontend(cam, **kw)
+    for kw in ({"sensor": "stereo"}, {"use_imu": True},
+               {"sensor": "stereo", "use_imu": True}):
+        fe = frontend(cam, **kw)
+        assert fe.use_imu == kw.get("use_imu", False)
     cam.dist_coeffs = np.array([0.1, 0, 0, 0, 0], np.float32)
-    with pytest.raises(NotImplementedError, match="stereo-inertial"):
-        frontend(cam)
+    assert frontend(cam).camera.has_distortion
+    with pytest.raises(AssertionError):
+        frontend(cam, sensor="stereo_inertial")
 
 
 def test_pose_recovery(rgbd_sequence):
@@ -553,3 +671,44 @@ def test_submap_spawn_and_merge_on_revisit():
             for k, t in zip(sorted(x.kfid for x in merge_ops[0].keyframes),
                             gts_b) if k in fe.map.keyframes]
     assert errs and np.median(errs) < 0.05, errs
+
+
+def centres(traj):
+    return np.stack([se3_inverse(T)[:3, 3] for T in traj])
+
+
+def test_stereo_inertial_tracking(stereo_inertial_sequence):
+    """The stereo-inertial sequence with the port's own vision and SGM:
+    every frame after the first tracked, ATE within the JAX stress tests'
+    5 cm, the IMU initialized with scale 1 (stereo is metric) and a
+    gravity rotation within 3 degrees of the truth (the first camera's
+    frame is already gravity aligned), SGM timed per frame."""
+    from photo_slam_tpu_torch.tracking.imu import so3_log
+
+    cam, frames, gt = stereo_inertial_sequence
+    fe = frontend(cam, sensor="stereo", kf_min_interval=1,
+                  kf_tracked_ratio=2.0, enable_loop_closing=False,
+                  use_imu=True, imu_calib=ImuCalib(
+                      Tbc=np.eye(4), freq=200.0, **synth_euroc.IMU_NOISE))
+    ops = [op for fr in frames for op in fe.process_frame(fr)]
+    assert fe.tracked_frames == len(frames) - 1 and fe.lost_frames == 0
+    assert ate_rmse(centres(fe.trajectory), centres(gt)) < 0.05
+    refine = [o for o in ops if o.kind == OprType.SCALE_REFINEMENT]
+    assert fe.imu_initialized and len(refine) == fe.num_scale_refinements
+    assert refine[0].scale == 1.0
+    angle = np.linalg.norm(so3_log(refine[0].transform[:3, :3].astype(
+        np.float64)))
+    assert np.degrees(angle) < 3.0
+    assert len(fe.stage_times["sgm"]) == len(frames)
+    assert all(t > 0 for t in fe.stage_times["sgm"])
+
+
+def test_vo_tracker_on_stereo_frames(stereo_inertial_sequence):
+    """OrbVoTracker takes its depth from the port's SGM on stereo frames."""
+    from photo_slam_tpu_torch.tracking.vo_tracker import OrbVoTracker
+
+    cam, frames, gt = stereo_inertial_sequence
+    vo = OrbVoTracker(cam, kf_min_interval=1, device="cpu")
+    ops = [op for op in map(vo.process_frame, frames) if op is not None]
+    assert ops and len(vo.trajectory) == len(frames)
+    assert ate_rmse(centres(vo.trajectory), centres(gt)) < 0.05

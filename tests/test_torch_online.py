@@ -230,22 +230,64 @@ def test_online_slam_cli_matches_jax(tmp_path):
 
 
 def test_cli_refuses_what_is_not_ported(tmp_path):
+    """The live viewer and batched training still wait for their slices
+    (ROADMAP Queue 1); the stereo sensor, --imu and euroc_stereo do not."""
     seq = Sequence(camera(), [])
-    for kw in ({"use_imu": True}, {"viewer": True}):
-        with pytest.raises(NotImplementedError, match="Queue 1"):
-            tonline.run_online(seq, tmapper.SensorType.RGBD,
-                               tconfig.Config(), tmp_path, device="cpu",
-                               **kw)
-    with pytest.raises(NotImplementedError, match="stereo-inertial"):
-        tonline.run_online(seq, tmapper.SensorType.STEREO, tconfig.Config(),
-                           tmp_path, frontend="slam", device="cpu")
-    with pytest.raises(NotImplementedError, match="stereo-inertial"):
-        tonline.APPS["euroc_stereo"](["--data", str(tmp_path), "--out",
-                                      str(tmp_path)])
+    with pytest.raises(NotImplementedError, match="Queue 1"):
+        tonline.run_online(seq, tmapper.SensorType.RGBD, tconfig.Config(),
+                           tmp_path, device="cpu", viewer=True)
     mapper = tmapper.GaussianMapper(tconfig.Config(),
                                     tmapper.SensorType.RGBD, device="cpu")
     with pytest.raises(NotImplementedError, match="Queue 1"):
         mapper.run(is_tracker_done=lambda: True, batch=2)
+    # Accepted now: an empty stereo sequence reaches the run's own check
+    # that tracking produced keyframes.
+    with pytest.raises(SystemExit, match="no keyframes"):
+        tonline.run_online(seq, tmapper.SensorType.STEREO, tconfig.Config(),
+                           tmp_path, frontend="slam", device="cpu")
+    # euroc_stereo parses and loads (a missing sequence is the loader's
+    # FileNotFoundError, not a refusal).
+    with pytest.raises(FileNotFoundError, match="EuRoC"):
+        tonline.APPS["euroc_stereo"](["--data", str(tmp_path), "--out",
+                                      str(tmp_path), "--device", "cpu"])
+
+
+def test_imu_needs_the_imu_channel(tmp_path):
+    """--imu on a EuRoC sequence without mav0/imu0 raises ValueError, as
+    the JAX app does."""
+    from test_euroc import write_euroc_like
+
+    root = write_euroc_like(tmp_path / "MH_noimu", num=3)
+    with pytest.raises(ValueError, match="no IMU"):
+        tonline.euroc_stereo(["--data", str(root), "--out",
+                              str(tmp_path / "out"), "--imu", "--device",
+                              "cpu"])
+
+
+def test_euroc_stereo_cli_runs_on_the_cpu(tmp_path):
+    """`online_slam euroc_stereo --imu --device cpu` end to end on a tiny
+    tree written by tools/synth_euroc.py: the slam frontend on SGM depth
+    with the IMU, the mapper, the five trajectory files and the inertial
+    fields of run_summary.json."""
+    from photo_slam_tpu_torch.tools.synth_euroc import SynthEuroc
+
+    data = SynthEuroc(12, 256, 160, device="cpu", n_splats=6000).write(
+        tmp_path / "MH")
+    out = tmp_path / "out"
+    mapper = tonline.euroc_stereo(["--data", str(data), "--out", str(out),
+                                   "--imu", "--iters", "3", "--device",
+                                   "cpu"])
+    assert mapper.device == torch.device("cpu")
+    assert mapper.sensor == tmapper.SensorType.STEREO
+    for name in TRAJECTORIES:
+        assert len((out / name).read_text().splitlines()) >= 1, name
+    assert len((out / "CameraTrajectory_TUM.txt").read_text()
+               .splitlines()) == 12
+    summary = json.loads((out / "run_summary.json").read_text())
+    assert summary["frontend"] == "slam" and summary["iterations"] == 3
+    assert isinstance(summary["imu_initialized"], bool)
+    assert isinstance(summary["scale_refinements"], int)
+    assert summary["ate_rmse"] is not None
 
 
 def write_textured_replica(root, num=12):
