@@ -4,10 +4,11 @@ Host-side replacement for the reference's cv::imread + tensor_utils converters
 (reference: include/tensor_utils.h:30-196). Uses OpenCV when present (fast
 path, matches the reference's BGR->RGB handling), falls back to PIL; both are
 optional so the core framework stays importable without them.
-photo_slam_tpu/io/images.py, copied, plus a PNG codec of the port's own
-(`read_png`, `write_png`, zlib and numpy) for the machines that have
-neither: it reads and writes the PNG kinds the datasets use (8-bit gray,
-8-bit RGB, 16-bit gray, not interlaced) and raises on any other.
+photo_slam_tpu/io/images.py, copied, plus codecs of the port's own for the
+machines that have neither: PNG (`read_png`, `write_png`, zlib and numpy:
+the kinds the datasets use, 8-bit gray, 8-bit RGB, 16-bit gray, not
+interlaced) and baseline JPEG (io/jpeg.py, host C++ equal to cv2.imread),
+chosen by the file's signature; any other kind raises.
 """
 from __future__ import annotations
 
@@ -16,6 +17,8 @@ import zlib
 from pathlib import Path
 
 import numpy as np
+
+from photo_slam_tpu_torch.io.jpeg import is_jpeg, read_jpeg
 
 try:
     import cv2  # type: ignore
@@ -150,11 +153,21 @@ def write_png(path, img: np.ndarray) -> None:
         + _chunk(b"IDAT", zlib.compress(raw, 6)) + _chunk(b"IEND", b""))
 
 
-def _read_png_only(path) -> np.ndarray:
-    if Path(path).suffix.lower() != ".png":
-        raise RuntimeError(f"no image backend for {path}: cv2 and PIL are "
-                           f"missing and the port's own codec reads PNG only")
-    return read_png(path)
+def _read_own(path) -> np.ndarray:
+    """A PNG or JPEG file through the port's own codecs, by its signature
+    (as cv2.imread picks its decoder)."""
+    p = Path(path)
+    if not p.is_file():
+        raise FileNotFoundError(str(path))
+    with open(p, "rb") as f:
+        head = f.read(len(PNG_SIGNATURE))
+    if head == PNG_SIGNATURE:
+        return read_png(p)
+    if is_jpeg(head):
+        return read_jpeg(p)
+    raise RuntimeError(f"no image backend for {path}: cv2 and PIL are "
+                       f"missing and the port's own codecs read PNG and "
+                       f"JPEG only")
 
 
 # ---------------------------------------------------------------------------
@@ -172,7 +185,7 @@ def load_image_chw(path) -> np.ndarray:
     elif Image is not None:
         img = np.asarray(Image.open(path).convert("RGB"))
     else:
-        img = _read_png_only(path)
+        img = _read_own(path)
         if img.dtype == np.uint16:  # as cv2.IMREAD_COLOR reduces 16 bits
             img = (img >> 8).astype(np.uint8)
         if img.ndim == 2:
@@ -190,7 +203,7 @@ def load_depth(path, depth_scale: float = 1.0) -> np.ndarray:
     elif Image is not None:
         d = np.asarray(Image.open(path))
     else:
-        d = _read_png_only(path)
+        d = _read_own(path)
     if d.ndim == 3:
         d = d[..., 0]
     return d.astype(np.float32) / depth_scale

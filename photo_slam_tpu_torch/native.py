@@ -1,15 +1,17 @@
-"""The host C++ optimizers of the SLAM frontend, loaded over ctypes.
+"""The host C++ libraries of the port, loaded over ctypes.
 
-Counterpart of photo_slam_tpu/native/__init__.py. The sources are the
-repository's own `native/pose_ba.cpp` (motion-only bundle adjustment, the
-role of ORB-SLAM3's Optimizer::PoseOptimization) and `native/slam_opt.cpp`
-(windowed local BA with a Schur complement and the SE3 pose graph, the
-roles of Optimizer::LocalBundleAdjustment and OptimizeEssentialGraph,
-reference: ORB-SLAM3/src/Optimizer.cc:1116, :1762). They are compiled
-unchanged, with `g++ -O3 -shared -fPIC -std=c++17`, into
-`<checkout>/build/torch_native/`, one library per source named by a digest
-of the source and the flags, at first use; both compilers start together.
-Nothing is written next to the sources.
+Counterpart of photo_slam_tpu/native/__init__.py. The SLAM frontend's
+optimizers are the repository's own `native/pose_ba.cpp` (motion-only
+bundle adjustment, the role of ORB-SLAM3's Optimizer::PoseOptimization)
+and `native/slam_opt.cpp` (windowed local BA with a Schur complement and
+the SE3 pose graph, the roles of Optimizer::LocalBundleAdjustment and
+OptimizeEssentialGraph, reference: ORB-SLAM3/src/Optimizer.cc:1116,
+:1762), compiled unchanged. The port's own host sources sit in
+`photo_slam_tpu_torch/csrc_host/` (`jpeg.cpp`, the JPEG decoder of
+io/jpeg.py). Each is compiled with `g++ -O3 -shared -fPIC -std=c++17`
+into `<checkout>/build/torch_native/`, one library per source named by a
+digest of the source and the flags, at first use; the two optimizers'
+compilers start together. Nothing is written next to the sources.
 
 A failed build raises with g++'s output: there is no silent fallback. The
 numpy versions (`pose_optimize_numpy`, `local_ba_numpy`,
@@ -33,9 +35,13 @@ import numpy as np
 from photo_slam_tpu_torch.utils.math import se3_exp_numpy, se3_log_numpy
 
 SRC_DIR = Path(__file__).resolve().parent.parent / "native"
+HOST_DIR = Path(__file__).resolve().parent / "csrc_host"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_native"
 GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
-SOURCES = {"pose_ba": "pose_ba.cpp", "slam_opt": "slam_opt.cpp"}
+SOURCES = {"pose_ba": SRC_DIR / "pose_ba.cpp",
+           "slam_opt": SRC_DIR / "slam_opt.cpp",
+           "jpeg": HOST_DIR / "jpeg.cpp"}
+OPTIMIZERS = ("pose_ba", "slam_opt")
 
 calls = {"pose_optimize": 0, "local_ba": 0, "pose_graph_optimize": 0}
 _build_lock = threading.Lock()
@@ -47,31 +53,32 @@ _D, _I = ctypes.c_double, ctypes.c_int
 
 
 def library_path(name: str) -> Path:
-    """build/torch_native/lib<name>-<digest>.so for native/<name>.cpp."""
-    h = hashlib.sha256((SRC_DIR / SOURCES[name]).read_bytes())
+    """build/torch_native/lib<name>-<digest>.so for SOURCES[name]."""
+    h = hashlib.sha256(SOURCES[name].read_bytes())
     h.update("\0".join(GXX_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
-def build() -> dict[str, Path]:
-    """Compile every library that is not built yet, one g++ per source,
-    started together. Raises with g++'s output if a build fails."""
+def build(names=None) -> dict[str, Path]:
+    """Compile the named libraries (default: all) that are not built yet,
+    one g++ per source, started together. Raises with g++'s output if a
+    build fails. Returns {name: library path}."""
     with _build_lock:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        paths = {n: library_path(n) for n in SOURCES}
+        paths = {n: library_path(n) for n in (names or SOURCES)}
         procs = {}
         for n, p in paths.items():
             if not p.exists():
                 tmp = p.with_suffix(f".{os.getpid()}.tmp")
                 procs[n] = (subprocess.Popen(
-                    ["g++", *GXX_FLAGS, str(SRC_DIR / SOURCES[n]), "-o",
+                    ["g++", *GXX_FLAGS, str(SOURCES[n]), "-o",
                      str(tmp)], stdout=subprocess.PIPE,
                     stderr=subprocess.STDOUT), tmp)
         failed = []
         for n, (proc, tmp) in procs.items():
             out = proc.communicate(timeout=300)[0].decode(errors="replace")
             if proc.returncode != 0:
-                failed.append(f"--- g++ {SOURCES[n]} (exit "
+                failed.append(f"--- g++ {SOURCES[n].name} (exit "
                               f"{proc.returncode})\n{out}")
                 tmp.unlink(missing_ok=True)
             else:
@@ -83,10 +90,18 @@ def build() -> dict[str, Path]:
 
 @functools.lru_cache(maxsize=None)
 def _lib(name: str) -> ctypes.CDLL:
-    path = build()[name]
+    path = build(OPTIMIZERS if name in OPTIMIZERS else (name,))[name]
     lib = ctypes.CDLL(str(path))
     _loaded[name] = path
-    if name == "pose_ba":
+    if name == "jpeg":
+        for fn in (lib.jpeg_info, lib.jpeg_decode):
+            fn.restype = _I
+        lib.jpeg_info.argtypes = [ctypes.c_char_p, ctypes.c_long,
+                                  ctypes.POINTER(_I), ctypes.POINTER(_I),
+                                  ctypes.POINTER(_I), ctypes.c_char_p, _I]
+        lib.jpeg_decode.argtypes = [ctypes.c_char_p, ctypes.c_long, _I,
+                                    ctypes.c_void_p, ctypes.c_char_p, _I]
+    elif name == "pose_ba":
         lib.pose_optimize.restype = _I
         lib.pose_optimize.argtypes = [_I, _f64, _f64, _D, _D, _D, _D, _D, _D,
                                       _I, _f64, ctypes.POINTER(_D)]

@@ -48,7 +48,15 @@ PREFILTER_CAP = 15
 DISP12_MAX_DIFF = 1
 DISP_SHIFT = 4      # fixed-point disparity: 1/16 px
 INVALID = -(1 << DISP_SHIFT)
-MAX_COST = 32767    # OpenCV's sentinel beyond d = -1 and d = D
+# A cost is at most 25 x (30 + 63) = 2,325; a path cost L lies in
+# [C - P2, C] (OpenCV subtracts minp + P2), so the five-path sum lies in
+# [-5 P2, 5 x 2,325] = [-25, 11,625], inside int16, OpenCV's CostType.
+MAX_COST = 25 * (2 * PREFILTER_CAP + 63)
+MAX_PATH_SUM = 5 * MAX_COST
+# The sentinel beyond d = -1 and d = D. OpenCV's (32,767) would wrap in
+# int16 once P1 is added; any s with s + P1 > MAX_COST + P2 (the largest
+# minp + P2) never wins, and 16,383 + P1 cannot overflow.
+SENTINEL = 16383
 
 
 def _prefilter(img: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -106,10 +114,10 @@ def cost_volume(left: torch.Tensor, right: torch.Tensor) -> torch.Tensor:
                for k in range(-BLOCK_RADIUS, BLOCK_RADIUS + 1))
 
 
-def _path_step(c, lp, minp):
+def _path_step(c, lp, minp, sentinel):
     """One step of every path in a batch: lp [..., D], minp [...]."""
     delta = (P2 + minp)[..., None]
-    big = torch.full_like(lp[..., :1], MAX_COST)
+    big = torch.full_like(lp[..., :1], sentinel)
     lower = torch.cat([big, lp[..., :-1]], -1) + P1
     upper = torch.cat([lp[..., 1:], big], -1) + P1
     lnew = c + torch.minimum(torch.minimum(lp, lower),
@@ -117,10 +125,11 @@ def _path_step(c, lp, minp):
     return lnew, lnew.amin(-1)
 
 
-def sgm_aggregate_plain(cost: torch.Tensor) -> torch.Tensor:
+def path_sums(cost: torch.Tensor, sentinel: int = SENTINEL) -> torch.Tensor:
     """[H, W1, D] int32 sum over the five paths of the path costs of the
-    int16 cost volume: the plain version of the sgm kernel. The two
-    horizontal paths step together, as do the three from the top."""
+    int16 cost volume, in torch steps with `sentinel` beyond d = -1 and
+    d = D. The two horizontal paths step together, as do the three from
+    the top."""
     h, w1, d = cost.shape
     c = cost.to(torch.int32)
     total = torch.zeros_like(c)
@@ -128,7 +137,7 @@ def sgm_aggregate_plain(cost: torch.Tensor) -> torch.Tensor:
     minp = c.new_zeros((2, h))
     for s in range(w1):
         lp, minp = _path_step(torch.stack([c[:, s], c[:, w1 - 1 - s]]), lp,
-                              minp)
+                              minp, sentinel)
         total[:, s] += lp[0]
         total[:, w1 - 1 - s] += lp[1]
     lp = c.new_zeros((3, w1, d))
@@ -141,13 +150,20 @@ def sgm_aggregate_plain(cost: torch.Tensor) -> torch.Tensor:
                           torch.cat([lp[2, 1:], zl])])
         minp = torch.stack([torch.cat([zm, minp[0, :-1]]), minp[1],
                             torch.cat([minp[2, 1:], zm])])
-        lp, minp = _path_step(c[y][None], lp, minp)
+        lp, minp = _path_step(c[y][None], lp, minp, sentinel)
         total[y] += lp.sum(0)
     return total
 
 
+def sgm_aggregate_plain(cost: torch.Tensor) -> torch.Tensor:
+    """[H, W1, D] int16 five-path sum of the int16 cost volume: the plain
+    version of the sgm kernel (path_sums, whose values never exceed
+    MAX_PATH_SUM, in the kernel's dtype)."""
+    return path_sums(cost).to(torch.int16)
+
+
 def sgm_aggregate(cost: torch.Tensor) -> torch.Tensor:
-    """The five-path sum of path costs, [H, W1, D] int32, of an int16
+    """The five-path sum of path costs, [H, W1, D] int16, of an int16
     [H, W1, 128] cost volume.
 
     On a CUDA tensor it launches csrc/sgm.cu (or raises); on a CPU tensor
@@ -164,7 +180,8 @@ def sgm_aggregate(cost: torch.Tensor) -> torch.Tensor:
                          f"[H, W1, {NUM_DISP}] tensor, got {cost.dtype} "
                          f"{tuple(cost.shape)}")
     h, w1, _ = cost.shape
-    total = torch.zeros(cost.shape, dtype=torch.int32, device=dev)
+    # Every element is written by the kernel's first pass.
+    total = torch.empty(cost.shape, dtype=torch.int16, device=dev)
     kernels.launch("sgm", dev, cost.data_ptr(), h, w1, total.data_ptr())
     sgm_aggregate.launches += 1
     return total
@@ -174,8 +191,8 @@ sgm_aggregate.launches = 0
 
 
 def _winners(total: torch.Tensor, width: int) -> torch.Tensor:
-    """Fixed-point disparity [H, W] int32 from the path-cost sum: the
-    first minimum, the parabola fit, the left-right check."""
+    """Fixed-point disparity [H, W] int32 from the path-cost sum (int16 or
+    int32): the first minimum, the parabola fit, the left-right check."""
     h, w1, d = total.shape
     dev = total.device
     ds = torch.arange(d, device=dev)
@@ -194,10 +211,10 @@ def _winners(total: torch.Tensor, width: int) -> torch.Tensor:
     disp2 = torch.where(won != none,
                         torch.gather(best, 1, winner_x.clamp(0, w1 - 1)),
                         INVALID)
-    s_lo = torch.gather(total, 2, (best - 1).clamp(0, d - 1)[..., None])[
-        ..., 0]
-    s_hi = torch.gather(total, 2, (best + 1).clamp(0, d - 1)[..., None])[
-        ..., 0]
+    # In int32: (s_lo - s_hi) * 16 and denom2 * 2 overflow int16.
+    s_lo, s_hi = (torch.gather(total, 2, (best + k).clamp(0, d - 1)[
+        ..., None])[..., 0].to(torch.int32) for k in (-1, 1))
+    min_s = min_s.to(torch.int32)
     denom2 = (s_lo + s_hi - 2 * min_s).clamp(min=1)
     sub = best * 16 + torch.div((s_lo - s_hi) * 16 + denom2, denom2 * 2,
                                 rounding_mode="trunc")

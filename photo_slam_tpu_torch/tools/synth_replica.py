@@ -14,7 +14,8 @@ By default the frames carry the sensor model of bench.py::corrupt_frame
 for apps/online_slam.run_online (`camera`, `frames()`), so the sequence
 needs no image files: the machine with the card has no image library.
 `write()` writes the Replica layout (results/frame*.jpg, depth*.png,
-traj.txt) for the CLI apps, which needs cv2 or PIL.
+traj.txt) for the CLI apps; where neither cv2 nor PIL (a JPEG encoder)
+imports, the frames are frame*.png, which the loader globs alike.
 
 Usage:
   python -m photo_slam_tpu_torch.tools.synth_replica <out_dir> \
@@ -212,26 +213,30 @@ class SynthReplica:
         return iter(self._frames)
 
     def write(self, out_dir) -> Path:
-        """The Replica layout under out_dir: results/frame*.jpg,
-        results/depth*.png (16 bit, REPLICA_DEPTH_SCALE units per meter) and
-        traj.txt (4x4 camera-to-world rows). Needs cv2 or PIL."""
-        from photo_slam_tpu_torch.io.images import Image, cv2, save_image_chw
+        """The Replica layout under out_dir: results/frame*.jpg (frame*.png
+        where no JPEG encoder imports), results/depth*.png (16 bit,
+        REPLICA_DEPTH_SCALE units per meter) and traj.txt (4x4
+        camera-to-world rows)."""
+        from photo_slam_tpu_torch.io import images
 
         out = Path(out_dir)
         results = out / "results"
         results.mkdir(parents=True, exist_ok=True)
+        encoder = images.cv2 is not None or images.Image is not None
         for i, fr in enumerate(self._frames):
-            save_image_chw(results / fr.filename, fr.image)
+            name = Path(fr.filename)
+            images.save_image_chw(
+                results / (name if encoder else name.with_suffix(".png")),
+                fr.image)
             d16 = np.clip(fr.depth * REPLICA_DEPTH_SCALE, 0,
                           65535).astype(np.uint16)
             path = str(results / f"depth{i:06d}.png")
-            if cv2 is not None:
-                cv2.imwrite(path, d16)
-            elif Image is not None:
-                Image.fromarray(d16).save(path)
+            if images.cv2 is not None:
+                images.cv2.imwrite(path, d16)
+            elif images.Image is not None:
+                images.Image.fromarray(d16).save(path)
             else:
-                raise RuntimeError("no image backend available (need cv2 "
-                                   "or PIL)")
+                images.write_png(path, d16)
         np.savetxt(out / "traj.txt",
                    np.stack([c.reshape(-1) for c in self.c2w]))
         return out

@@ -49,7 +49,6 @@ shares, and ms per round for each build.
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
 import subprocess
 from pathlib import Path
@@ -66,7 +65,7 @@ from photo_slam_tpu_torch.models.keyframe import Keyframe
 from photo_slam_tpu_torch.models.scene import Scene
 from photo_slam_tpu_torch.ops import blend as blend_mod
 from photo_slam_tpu_torch.ops.render import RenderSettings, render
-from photo_slam_tpu_torch.tools import bench_room
+from photo_slam_tpu_torch.tools import bench_room, variants
 
 RTOL = 1e-4
 # The trained map's keyframes: camera translations (m) of the identity
@@ -98,39 +97,8 @@ KNOCKOUTS = {
 
 
 def knockout_source(source: str, kernel: str, name: str) -> str:
-    for old, new in KNOCKOUTS[kernel][name]:
-        if source.count(old) != 1:
-            raise ValueError(f"knockout {kernel} {name}: {old!r} occurs "
-                             f"{source.count(old)} times in the source")
-        source = source.replace(old, new)
-    return source
-
-
-def build(kernel: str, sources: dict[str, str]) -> dict[str, tuple]:
-    """{name: (ctypes launcher, the build log's register, shared memory and
-    spill lines)}, one nvcc per source, all started together."""
-    launcher = f"blend_{kernel}"
-    kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name, src in sources.items():
-        digest = kernels.source_digest(src.encode())
-        cu = kernels.BUILD_DIR / f"{launcher}_variant-{digest}.cu"
-        so = cu.with_suffix(".so")
-        cu.write_text(src)
-        procs[name] = (subprocess.Popen(
-            kernels.nvcc_command(cu, so), stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT), so)
-    out = {}
-    for name, (proc, so) in procs.items():
-        log = proc.communicate()[0].decode(errors="replace")
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc {name} (exit {proc.returncode}):\n{log}")
-        fn = getattr(ctypes.CDLL(str(so)), f"{launcher}_launch")
-        fn.argtypes = kernels.LAUNCHERS[launcher]
-        fn.restype = ctypes.c_int
-        out[name] = (fn, [ln.strip() for ln in log.splitlines()
-                          if "registers" in ln or "spill" in ln])
-    return out
+    return variants.knockout_source(source, KNOCKOUTS[kernel][name],
+                                    f"{kernel} {name}")
 
 
 def trained_view(iters: int, *, device, n: int = bench_room.N_GAUSSIANS,
@@ -306,7 +274,7 @@ def main(argv=None) -> int:
         sources[name] = knockout_source(source, args.kernel, name)
     if args.baseline is not None:
         sources["baseline"] = args.baseline.read_text()
-    builds = build(args.kernel, sources)
+    builds = variants.build(f"blend_{args.kernel}", sources)
     for name, (_, lines) in builds.items():
         for ln in lines:
             print(f"{tag} {name}: {ln}", flush=True)

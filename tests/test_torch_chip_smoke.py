@@ -450,19 +450,24 @@ def test_true_disparity_share():
 
 
 def test_sgm_bound_and_row():
-    """The bound prices EuRoC's volume by its bytes (int16 read, int32
-    written, 0.0686 ms at 3.35 TB/s); the row has every key of the
-    contract."""
+    """The bound prices EuRoC's volume by its bytes (int16 read, int16
+    written, 0.0458 ms at 3.35 TB/s; 0.0687 ms with the first design's
+    int32 sum); the row has every key of the contract."""
     ms, by = cs.sgm_bound(480, 752 - 128)
     n = 480 * 624 * 128
-    assert by == "bytes" and ms == pytest.approx(1e3 * 6 * n / 3.35e12)
+    assert by == "bytes" and ms == pytest.approx(1e3 * 4 * n / 3.35e12)
+    assert round(ms, 4) == 0.0458
+    earlier = cs.sgm_bound(480, 624, sum_bytes=4)[0]
+    assert earlier == pytest.approx(1e3 * 6 * n / 3.35e12)
+    assert round(earlier, 4) == 0.0687
     assert cs.SGM_PATHS * cs.SGM_OPS_PER_STEP * n / cs.PEAK_F32_FLOPS < \
-        6 * n / cs.PEAK_BYTES
+        4 * n / cs.PEAK_BYTES
     paths = {"train": {"blend_fwd": 23}, "euroc": {"sgm": 120,
                                                    "blend_fwd": 1040}}
     row = cs.kernel_row(paths, "sgm", "photo_slam_tpu_torch/csrc/sgm.cu",
                         "photo_slam_tpu/mapper/mapper.py:342", 120, 0, 0.5,
                         900.0, (ms, by), None, replaces_what=cs.SGM_REPLACES,
+                        design=cs.SGM_DESIGN, earlier_design=cs.SGM_EARLIER,
                         launches_per_frame=1.0)
     for key in ("name", "route", "source", "replaces", "launches",
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -472,5 +477,8 @@ def test_sgm_bound_and_row():
     assert row["launches_by_path"] == {"train": 0, "euroc": 120}
     assert row["bound_ms"] == ms and row["bound_by"] == "bytes"
     assert "StereoSGBM" in row["replaces_what"]
+    # Descriptions of the designs, with no times (PERF.md holds those).
+    for key in ("design", "earlier_design"):
+        assert row[key] and " ms" not in row[key]
     assert cs.EUROC_ATE_M == 0.05 and cs.EUROC_FRAMES == 120
     assert cs.EUROC_ITERS == cs.ONLINE_ITERS == 1000

@@ -347,8 +347,10 @@ def test_image_loaders_without_a_library(tmp_path, monkeypatch):
     images.save_image_chw(tmp_path / "out.png", want[1])
     np.testing.assert_array_equal(images.load_image_chw(tmp_path / "out.png"),
                                   want[1])
-    with pytest.raises(RuntimeError, match="PNG only"):
-        images.load_image_chw(tmp_path / "x.jpg")
+    # Neither PNG nor JPEG by its signature (a BMP header): refused.
+    (tmp_path / "x.bmp").write_bytes(b"BM" + bytes(60))
+    with pytest.raises(RuntimeError, match="PNG and JPEG only"):
+        images.load_image_chw(tmp_path / "x.bmp")
     with pytest.raises(FileNotFoundError):
         images.load_image_chw(tmp_path / "none.png")
 

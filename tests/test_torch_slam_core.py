@@ -42,9 +42,11 @@ def test_native_builds_into_build_dir():
 
 def test_native_build_failure_raises(tmp_path, monkeypatch):
     (tmp_path / "src").mkdir()
-    for src in native.SOURCES.values():
-        (tmp_path / "src" / src).write_text("this is not C++\n")
-    monkeypatch.setattr(native, "SRC_DIR", tmp_path / "src")
+    broken = {name: tmp_path / "src" / src.name
+              for name, src in native.SOURCES.items()}
+    for src in broken.values():
+        src.write_text("this is not C++\n")
+    monkeypatch.setattr(native, "SOURCES", broken)
     monkeypatch.setattr(native, "BUILD_DIR", tmp_path / "build")
     with pytest.raises(RuntimeError, match="native build failed"):
         native.build()

@@ -18,11 +18,13 @@ import torch
 from photo_slam_tpu.mapper import mapper as jmapper
 from photo_slam_tpu.mapper.mapping_ops import KeyframeData as JKeyframeData
 from photo_slam_tpu.models.camera import Camera as JCamera
+from photo_slam_tpu_torch import kernels
 from photo_slam_tpu_torch.config import Config
 from photo_slam_tpu_torch.mapper.mapper import GaussianMapper, SensorType
 from photo_slam_tpu_torch.mapper.mapping_ops import KeyframeData
 from photo_slam_tpu_torch.models.camera import PINHOLE, Camera
 from photo_slam_tpu_torch.ops import stereo
+from photo_slam_tpu_torch.tools import time_sgm, variants
 from test_stereo import BASELINE, DEPTH, FX, H, W, make_pair
 from test_torch_blend import one_torch_thread  # noqa: F401
 
@@ -101,6 +103,101 @@ def test_aggregate_refuses_devices_without_a_kernel():
     with pytest.raises(ValueError, match="unsupported device"):
         stereo.sgm_aggregate(torch.zeros((4, 4, 128), dtype=torch.int16,
                                          device="meta"))
+
+
+# ---------------------------------------------------------------------------
+# The int16 sum of the sgm kernel: its range, its sentinel, the winners
+# ---------------------------------------------------------------------------
+
+def noise_volume(seed=3, h=40, w=180):
+    rng = np.random.default_rng(seed)
+    left, right = rng.integers(0, 256, (2, h, w), np.uint8)
+    return stereo.cost_volume(torch.from_numpy(left),
+                              torch.from_numpy(right)).contiguous()
+
+
+def test_path_sums_fit_int16_on_a_worst_case_volume():
+    """Every cost at its largest, 25 x (30 + 63) = 2,325, and a volume of
+    costs alternating between 0 and that bound along every axis: the
+    five-path sum stays within [-5 P2, MAX_PATH_SUM] = [-25, 11,625] (below
+    11,650 = 5 x (2,325 + P2) and 32,767), so the int16 sum of the kernel
+    and the plain version holds it exactly."""
+    cap = stereo.MAX_COST
+    assert cap == 2325 and stereo.MAX_PATH_SUM <= 11650 < 32767
+    full = torch.full((6, 9, 128), cap, dtype=torch.int16)
+    yy, xx, dd = np.meshgrid(np.arange(6), np.arange(9), np.arange(128),
+                             indexing="ij")
+    checker = torch.from_numpy(((yy + xx + dd) % 2 * cap).astype(np.int16))
+    for cost in (full, checker, noise_volume()):
+        assert int(cost.max()) <= cap
+        total = stereo.path_sums(cost)
+        assert total.dtype == torch.int32
+        assert -5 * stereo.P2 <= int(total.min()) and int(total.max()) <= \
+            stereo.MAX_PATH_SUM
+        assert torch.equal(stereo.sgm_aggregate_plain(cost).to(torch.int32),
+                           total)
+    assert int(stereo.path_sums(full).max()) == 5 * (cap - stereo.P2)
+
+
+def test_path_sums_do_not_depend_on_the_sentinel():
+    """OpenCV's MAX_COST (32,767, which wraps in int16 once P1 is added),
+    the kernel's 16,383 and the least sentinel that never wins (2,329:
+    2,329 + P1 > 2,330, the largest minp + P2) give the same sums; a
+    sentinel that can win (0) does not."""
+    for cost in (noise_volume(), stereo.cost_volume(
+            *(torch.from_numpy(a) for a in slanted_pair(seed=4, h=32,
+                                                        w=170)))):
+        want = stereo.path_sums(cost, sentinel=32767)
+        for sentinel in (stereo.SENTINEL, stereo.MAX_COST + stereo.P2 - stereo.P1 + 1):
+            assert torch.equal(stereo.path_sums(cost, sentinel=sentinel),
+                               want)
+        assert not torch.equal(stereo.path_sums(cost, sentinel=0), want)
+
+
+def test_winners_on_the_int16_sum_equal_the_int32_sum():
+    """_winners casts the gathered sums to int32 before (s_lo - s_hi) * 16
+    and denom2 * 2, which overflow int16 on sums above 2,047."""
+    left, right = slanted_pair(seed=5, h=40, w=200)
+    rng = np.random.default_rng(6)
+    noise = rng.integers(0, 256, (2, 40, 200), np.uint8)
+    for a, b in ((left, right), tuple(noise)):
+        total = stereo.path_sums(stereo.cost_volume(
+            torch.from_numpy(a), torch.from_numpy(b)).contiguous())
+        assert int(total.max()) * 16 > 32767
+        want = stereo._winners(total, 200)
+        got = stereo._winners(total.to(torch.int16), 200)
+        assert got.dtype == want.dtype == torch.int32
+        assert torch.equal(got, want)
+
+
+def test_plain_aggregate_has_the_kernel_dtype():
+    cost = noise_volume(h=8, w=140)
+    before = stereo.sgm_aggregate.launches
+    for got in (stereo.sgm_aggregate_plain(cost),
+                stereo.sgm_aggregate(cost)):
+        assert got.dtype == torch.int16 and got.shape == cost.shape
+        assert torch.equal(got.to(torch.int32), stereo.path_sums(cost))
+    assert stereo.sgm_aggregate.launches == before
+
+
+@pytest.mark.parametrize("name", sorted(time_sgm.KNOCKOUTS))
+def test_sgm_knockouts_apply_to_the_kernel_source(name):
+    """Each knockout that tools/time_sgm.py times the kernel against edits
+    csrc/sgm.cu exactly where it says: ring-4 keeps 4 steps of loads in
+    flight in place of 16; rows-only returns before passes 2-4 launch."""
+    source = (kernels.CSRC_DIR / "sgm.cu").read_text()
+    edited = variants.knockout_source(source, time_sgm.KNOCKOUTS[name], name)
+    launcher = edited[edited.index('extern "C" int sgm_launch'):]
+    if name == "ring-4":
+        assert "kRing = 16;" in source and "kRing = 4;" in edited
+        assert launcher.count("sgm_down_kernel<") == 3
+    else:
+        assert name == "rows-only"
+        body = launcher[:launcher.index("return (int)cudaGetLastError();")]
+        assert "sgm_rows_kernel<<<" in body
+        assert "sgm_down_kernel<" not in body
+    with pytest.raises(ValueError, match="occurs 0 times"):
+        variants.knockout_source(edited, time_sgm.KNOCKOUTS[name], name)
 
 
 def test_disparity_chw_matches_jax_mapper_function():
