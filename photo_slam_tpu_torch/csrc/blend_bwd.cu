@@ -80,6 +80,7 @@
 
 #include <cuda_runtime.h>
 
+#include "butterfly9.cuh"
 #include "cull_box.cuh"
 
 namespace {
@@ -95,49 +96,6 @@ constexpr int kFeat = 16;
 constexpr int kGrad = 9;                // gradient lanes 0-8
 constexpr int kBatch = 128;             // rows staged and summed per round
 constexpr int kPartStride = kWarps * kGrad + 1;  // 73 floats per row
-
-// Lane-dependent half of a pair of sums: what a lane keeps and what it
-// sends at one butterfly step.
-__device__ __forceinline__ float exchange(float lo_v, float hi_v, bool upper,
-                                          int offset) {
-  const float keep = upper ? hi_v : lo_v;
-  const float send = upper ? lo_v : hi_v;
-  return keep + __shfl_xor_sync(0xffffffffu, send, offset);
-}
-
-// Sums v[0..8] over the warp's 32 lanes with a transpose butterfly: lanes
-// 16 apart split the nine sums 5 / 4 (plus a zero), then 3 / 2, 2 / 1,
-// 1 / 1, and the last step adds both halves of a lane pair. Sum q ends in
-// lanes 2 c and 2 c + 1 with c = 8 b4 + 4 b3 + 2 b2 + b1, q = 5 b4 + 3 b3 +
-// 2 b2 + b1 (butterfly9_sum gives each lane its q, or -1). Returns this
-// lane's total.
-__device__ __forceinline__ float butterfly9(const float (&v)[kGrad],
-                                            int lane) {
-  float w[5];
-#pragma unroll
-  for (int i = 0; i < 5; ++i)
-    w[i] = exchange(v[i], i + 5 < kGrad ? v[i + 5] : 0.0f, lane & 16, 16);
-  float x[3];
-#pragma unroll
-  for (int i = 0; i < 3; ++i)
-    x[i] = exchange(w[i], i + 3 < 5 ? w[i + 3] : 0.0f, lane & 8, 8);
-  float y[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-    y[i] = exchange(x[i], i + 2 < 3 ? x[i + 2] : 0.0f, lane & 4, 4);
-  float z = exchange(y[0], y[1], lane & 2, 2);
-  return z + __shfl_xor_sync(0xffffffffu, z, 1);
-}
-
-// Which of the nine sums butterfly9 leaves in this lane for it to store, or
-// -1 (odd lanes, and the slots that held the zeros).
-__device__ __forceinline__ int butterfly9_sum(int lane) {
-  const int b4 = (lane >> 4) & 1, b3 = (lane >> 3) & 1;
-  const int b2 = (lane >> 2) & 1, b1 = (lane >> 1) & 1;
-  const bool holds = !(lane & 1) && b1 < 2 - b2 && 2 * b2 + b1 < 3 - b3 &&
-                     3 * b3 + 2 * b2 + b1 < 5 - b4;
-  return holds ? 5 * b4 + 3 * b3 + 2 * b2 + b1 : -1;
-}
 
 __global__ void __launch_bounds__(kThreads)
 blend_bwd_kernel(const float* __restrict__ data, const int* __restrict__ counts,

@@ -1,6 +1,7 @@
-"""Time a blend kernel, the forward K1 or the backward K2, against builds of
-its source with a part knocked out or against another source of it, on the
-production pass-1 tiles, in turns.
+"""Time a blend kernel, the forward K1, the backward K2, the group-vectorized
+forward X3 or the 16 px quadrant backward X4b, against builds of its source
+with a part knocked out or against another source of it, on the production
+pass-1 tiles (X4b: X4's 16 px quadrant table of the same view), in turns.
 
 The room scene (bench_room.room_view, 300,000 Gaussians, seed 0) binned at
 32 px (k_dup 6, K 1024: [836, 1024, 16]). `--kernel fwd` times K1
@@ -9,9 +10,17 @@ against blend_fwd_plain (colour, final T and n_contrib). `--kernel bwd`
 times K2 (csrc/blend_bwd.cu) on them, blended forward by K1, with seeded
 random cotangents of the colour and of final_T, each build first held
 against blend_bwd_plain as chip_smoke.py holds K2 (per-lane error within
-1e-4 of the lane's max, rows past counts_eff and lanes 9-15 zero). Then the
-builds are timed `--rounds` times in turns, each time the mean of `--reps`
-launches from CUDA events. `--opacity` sets every entry's opacity first:
+1e-4 of the lane's max, rows past counts_eff and lanes 9-15 zero).
+`--kernel x3` times X3 (csrc/blend_vec_fwd.cu) on the pass-1 tiles, each
+build held against blend_vec_plain as chip_smoke.py holds X3 (colour and T
+within 1e-5, n_contrib differing at no more than 1e-4 of the pixels).
+`--kernel x4b` times X4b (csrc/blend16_bwd.cu) on the view's 16 px
+quadrant table [B, 768, 4, 16] (exp_blend16.bin16, quadrant_table),
+blended forward by X4f, with seeded random cotangents and the raw
+quadrant counts, as exp_blend16.run calls it, each build held against
+blend16_bwd_plain as K2 is. Then the builds are timed `--rounds` times
+in turns, each time the mean of `--reps` launches from CUDA events.
+`--opacity` sets every entry's opacity first:
 the room's splats (0.1) never bring a pixel's T below 1e-4 within its
 tile's rows, so only a higher opacity (0.99) times K1's stops. `--map
 trained` takes the tiles of a trained map instead (trained_view): the room
@@ -35,16 +44,32 @@ Every build uses the kernels' nvcc flags and finds csrc/'s headers:
                    of two blocks of 128, one per half tile.
   bwd without-box  no per-entry box: a warp skips an entry only by
                    n_contrib.
+  x3 without-box   an unbounded box: every warp takes every entry until
+                   all its pixels are dead.
+  x3 block-stop    as fwd's: the block stops once per batch of 128 rows.
+  x4b without-box  an unbounded box: a warp skips an entry only by
+                   n_contrib.
+  x4b shuffle-trees  nine 5-step shuffle trees (45 shuffles) in place of
+                   the 12-shuffle butterfly.
+  x4b quadrant-blocks  one 64-thread block per quadrant in place of one
+                   256-thread block per 32 px block (each quadrant on its
+                   own two warps and named barrier).
 
     python -m photo_slam_tpu_torch.tools.time_blend --kernel fwd \\
         --knockout without-box --knockout block-stop \\
         --knockout whole-tile --baseline build/blend_fwd_earlier.cu
+    python -m photo_slam_tpu_torch.tools.time_blend --kernel x3 \\
+        --knockout without-box --knockout block-stop \\
+        --baseline build/blend_vec_fwd_earlier.cu
+    python -m photo_slam_tpu_torch.tools.time_blend --kernel x4b \\
+        --knockout without-box --knockout shuffle-trees \\
+        --knockout quadrant-blocks --baseline build/blend16_bwd_earlier.cu
     python -m photo_slam_tpu_torch.tools.time_blend --kernel fwd \\
         --knockout block-stop --map trained
 
 Prints each build's registers, shared memory and spills, then one JSON
 line: the card's `nvidia-smi` name and power limit, the map and its stop
-shares, and ms per round for each build.
+shares (for the 32 px kernels), and ms per round for each build.
 """
 from __future__ import annotations
 
@@ -66,8 +91,12 @@ from photo_slam_tpu_torch.models.scene import Scene
 from photo_slam_tpu_torch.ops import blend as blend_mod
 from photo_slam_tpu_torch.ops.render import RenderSettings, render
 from photo_slam_tpu_torch.tools import bench_room, variants
+from photo_slam_tpu_torch.tools import exp_blend16 as x4
+from photo_slam_tpu_torch.tools import exp_blend_vec as x3
 
-RTOL = 1e-4
+RTOL = 1e-4        # K2 and X4b: per-lane error within this of the lane's max
+VEC_ATOL = 1e-5    # X3: colour and final T
+VEC_NC_MISMATCH = 1e-4  # X3: share of pixels whose n_contrib may differ
 # The trained map's keyframes: camera translations (m) of the identity
 # rotation, the first the view whose tiles are timed.
 TRAIN_VIEWS = ((0.0, 0.0, 0.0), (0.4, 0.0, 0.0), (-0.4, 0.0, 0.0),
@@ -81,6 +110,16 @@ WITHOUT_BOX = (
      "const float4 box = make_float4(-CUDART_INF_F, CUDART_INF_F, "
      "-CUDART_INF_F, CUDART_INF_F);"),
 )
+# X3 and X4b keep one bit per warp and row (s_reach) in place of the box:
+# an unbounded box reaches every warp.
+WITHOUT_REACH = (
+    ("const float4 box = cull_box(r0.x, r0.y, r0.z, r0.w, r1.x, r1.y);",
+     "const float4 box = make_float4(-CUDART_INF_F, CUDART_INF_F, "
+     "-CUDART_INF_F, CUDART_INF_F);"),
+)
+# The kernel source (csrc/<name>.cu) and launcher of each --kernel.
+KERNELS = {"fwd": "blend_fwd", "bwd": "blend_bwd", "x3": "blend_vec_fwd",
+           "x4b": "blend16_bwd"}
 KNOCKOUTS = {
     "fwd": {
         "without-box": WITHOUT_BOX,
@@ -93,6 +132,25 @@ KNOCKOUTS = {
         ),
     },
     "bwd": {"without-box": WITHOUT_BOX},
+    "x3": {"without-box": WITHOUT_REACH,
+           "block-stop": (("  return __all_sync(0xffffffffu, mine_dead);",
+                           "  return false;"),)},
+    "x4b": {
+        "without-box": WITHOUT_REACH,
+        "shuffle-trees": ((
+            "          const float total = butterfly9(acc, lane);\n",
+            "          float total = 0.0f;\n"
+            "#pragma unroll\n"
+            "          for (int g = 0; g < kGrad; ++g) {\n"
+            "            float v = acc[g];\n"
+            "#pragma unroll\n"
+            "            for (int off = 16; off > 0; off >>= 1)\n"
+            "              v += __shfl_xor_sync(0xffffffffu, v, off);\n"
+            "            if (g == my_sum) total = v;\n"
+            "          }\n"),),
+        "quadrant-blocks": (("constexpr int kQuadsPerBlock = 4;",
+                             "constexpr int kQuadsPerBlock = 1;"),),
+    },
 }
 
 
@@ -239,6 +297,63 @@ def bwd_case(t, dev):
     return call, check
 
 
+def x3_case(t, dev):
+    """(call(fn) -> outputs, check(outputs)) of X3 on the tiles."""
+    nb = t.num_tiles
+    want = x3.blend_vec_plain(t.data, t.counts, t.tiles_x, nb)
+
+    def call(fn):
+        out = (t.data.new_empty(want[0].shape), t.data.new_empty(
+            want[1].shape), t.counts.new_empty(want[2].shape))
+        err = fn(t.data.data_ptr(), t.counts.data_ptr(), nb, t.data.shape[1],
+                 t.tiles_x, *(x.data_ptr() for x in out),
+                 torch.cuda.current_stream().cuda_stream)
+        kernels.check_launch("blend_vec_fwd", err)
+        return out
+
+    def check(got):
+        err = max(float((g - w).abs().max()) for g, w in zip(got[:2],
+                                                              want[:2]))
+        mism = float((got[2] != want[2]).float().mean())
+        return (err <= VEC_ATOL and mism <= VEC_NC_MISMATCH,
+                f"max abs err {err:.3e}, n_contrib mismatch {mism:.2e}")
+    return call, check
+
+
+def x4b_case(view, dev, opacity=None):
+    """(call(fn) -> d_data, check(d_data)) of X4b on the view's 16 px
+    quadrant table, blended forward by X4f."""
+    path = x4.bin16(view)
+    nb, cq = path.num_blocks, path.counts_q
+    d16c = x4.quadrant_table(view.feat.detach(), path).contiguous()
+    if opacity is not None:
+        d16c[..., 5] = opacity
+    _, final_t, n_contrib = x4.blend16_fwd(d16c, cq, nb)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    g_color = torch.randn((nb, 3, 8, 128), generator=gen, device=dev)
+    g_t = torch.randn((nb, 8, 128), generator=gen, device=dev)
+    inputs = (d16c, cq, final_t, n_contrib, g_color, g_t)
+    want = x4.blend16_bwd_plain(*inputs, nb)
+    rows_past = (torch.arange(d16c.shape[1], device=dev)[None, :, None]
+                 >= cq.reshape(nb, 4)[:, None, :])
+
+    def call(fn):
+        out = torch.empty_like(d16c)
+        err = fn(*(x.data_ptr() for x in inputs), nb, d16c.shape[1],
+                 out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        kernels.check_launch("blend16_bwd", err)
+        return out
+
+    def check(got):
+        err = (got - want).abs().amax(dim=(0, 1, 2))[:9]
+        scale = want.abs().amax(dim=(0, 1, 2))[:9]
+        rel = float((err / scale.clamp_min(1e-30)).max())
+        ok = (rel <= RTOL and bool((got[..., 9:] == 0).all())
+              and bool((got[rows_past] == 0).all()))
+        return ok, f"per-lane error / lane max {rel:.3e}"
+    return call, check, list(d16c.shape)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernel", choices=sorted(KNOCKOUTS), required=True)
@@ -268,13 +383,14 @@ def main(argv=None) -> int:
         timeout=60).stdout.strip().splitlines()[0]
     tag = f"[time_blend {args.kernel}]"
 
-    source = (kernels.CSRC_DIR / f"blend_{args.kernel}.cu").read_text()
+    launcher = KERNELS[args.kernel]
+    source = (kernels.CSRC_DIR / f"{launcher}.cu").read_text()
     sources = {"checkout": source}
     for name in args.knockout:
         sources[name] = knockout_source(source, args.kernel, name)
     if args.baseline is not None:
         sources["baseline"] = args.baseline.read_text()
-    builds = variants.build(f"blend_{args.kernel}", sources)
+    builds = variants.build(launcher, sources)
     for name, (_, lines) in builds.items():
         for ln in lines:
             print(f"{tag} {name}: {ln}", flush=True)
@@ -286,16 +402,23 @@ def main(argv=None) -> int:
               f"{trainer.metrics.num_live} live", flush=True)
     else:
         view = bench_room.room_view(device=dev)
-    t = bench_room.tiles32(view)
-    if args.opacity is not None:
-        data = t.data.clone()
-        data[..., 5] = args.opacity
-        t = t._replace(data=data)
-    stopped = stop_shares(t)
-    print(f"{tag} {args.map} tiles {list(t.data.shape)}, "
-          f"{int(t.counts.sum())} rows: {stopped[0]:.4f} of the pixels and "
-          f"{stopped[1]:.4f} of the 16 x 8 px warp blocks stop", flush=True)
-    call, check = (fwd_case if args.kernel == "fwd" else bwd_case)(t, dev)
+    stopped = (None, None)
+    if args.kernel == "x4b":
+        call, check, shape = x4b_case(view, dev, args.opacity)
+        print(f"{tag} {args.map} 16 px quadrant table {shape}", flush=True)
+    else:
+        t = bench_room.tiles32(view)
+        if args.opacity is not None:
+            data = t.data.clone()
+            data[..., 5] = args.opacity
+            t = t._replace(data=data)
+        stopped = stop_shares(t)
+        shape = list(t.data.shape)
+        print(f"{tag} {args.map} tiles {shape}, {int(t.counts.sum())} rows: "
+              f"{stopped[0]:.4f} of the pixels and {stopped[1]:.4f} of the "
+              f"16 x 8 px warp blocks stop", flush=True)
+        call, check = {"fwd": fwd_case, "bwd": bwd_case,
+                       "x3": x3_case}[args.kernel](t, dev)
     for name, (fn, _) in builds.items():
         ok, what = check(call(fn))
         if not ok:
@@ -309,7 +432,7 @@ def main(argv=None) -> int:
             ms[name].append(bench_room.time_ms(lambda: call(fn), args.reps,
                                                dev))
     print(json.dumps({"card": smi, "kernel": args.kernel, "map": args.map,
-                      "tiles": list(t.data.shape), "opacity": args.opacity,
+                      "tiles": shape, "opacity": args.opacity,
                       "stopped_pixels": stopped[0],
                       "stopped_warps": stopped[1], "reps": args.reps,
                       "ms": ms}), flush=True)

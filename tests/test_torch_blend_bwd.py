@@ -1,8 +1,9 @@
 """K2's plain version (photo_slam_tpu_torch/ops/blend.py::blend_bwd_plain)
 and the differentiable pallas_blend against the JAX package's blend
 backward, run interpreted on the CPU, on identical packed tiles; the box
-that K1 and K2 skip their warps by (entry_cull_boxes), the knockouts of
-tools/time_blend.py, and the hash that names the kernels' libraries."""
+that K1, K2, X3 and X4b skip their warps by (entry_cull_boxes, also in
+X4's 16 px quadrant frame), the knockouts of tools/time_blend.py, and the
+hash that names the kernels' libraries."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -15,6 +16,7 @@ from photo_slam_tpu.ops.pallas.blend import _blend_bwd_call
 from photo_slam_tpu.ops.pallas.blend import pallas_blend as jblend
 from photo_slam_tpu_torch import kernels
 from photo_slam_tpu_torch.ops import blend as tblend
+from photo_slam_tpu_torch.tools import exp_blend16 as tx4
 from photo_slam_tpu_torch.tools import time_blend
 from test_torch_blend import one_torch_thread, packed_tiles  # noqa: F401
 
@@ -218,34 +220,89 @@ def test_cull_boxes_hold_every_contributing_pair(kinds, seed):
             assert np.isinf(box).all() and box[0] < box[1]
 
 
+@settings(max_examples=40, deadline=None, database=None)
+@given(kinds=st.lists(st.sampled_from(ROW_KINDS), min_size=1, max_size=8),
+       seed=st.integers(0, 2 ** 31 - 1))
+def test_cull_boxes_hold_every_contributing_pair_in_quadrant_frame(kinds,
+                                                                   seed):
+    """X4b's box in the 16 px quadrant frame: splats whose means straddle
+    the borders between a 32 px block's four quadrants (and the block's
+    edges), each quadrant's row holding the mean in that quadrant's local
+    pixels as exp_blend16.quadrant_table shifts it. Every pair that
+    blend16_bwd_plain's own f32 arithmetic counts as contributing, at the
+    quadrant's 256 local pixels, lies inside the local row's box, so no
+    warp block of the quadrant (rows 0-7, rows 8-15) whose rect the box
+    misses holds one."""
+    rows = cull_rows(kinds, seed)
+    rng = np.random.RandomState(seed % 1000)
+    origin = 32.0 * rng.randint(0, 40, 2)
+    rows[:, 0:2] = (origin + 16.0 * rng.randint(0, 3, (len(kinds), 2))
+                    + rng.uniform(-3, 3, (len(kinds), 2))).astype(np.float32)
+    lx, ly = tx4._local_pixels("cpu", torch.float32)
+    x, y = lx[0].numpy(), ly[0].numpy()
+    for q in range(4):
+        local = rows.copy()
+        local[:, 0:2] -= (origin + 16.0 * np.array([q % 2, q // 2])).astype(
+            np.float32)
+        t = torch.from_numpy(local)
+        boxes = tblend.entry_cull_boxes(t).numpy()
+        contrib = tblend.pair_terms(t, lx, ly)[-1].numpy()   # [N, 256]
+        inside = ((boxes[:, 0:1] <= x) & (x <= boxes[:, 1:2])
+                  & (boxes[:, 2:3] <= y) & (y <= boxes[:, 3:4]))
+        assert not (contrib & ~inside).any(), (q, local[:, :6], boxes)
+        for w in range(2):
+            rect_y0 = 8.0 * w
+            misses = ~((boxes[:, 1] >= 0.0) & (boxes[:, 0] <= 15.0)
+                       & (boxes[:, 3] >= rect_y0)
+                       & (boxes[:, 2] <= rect_y0 + 7.0))
+            mine = (y >= rect_y0) & (y <= rect_y0 + 7.0)
+            assert not (contrib[misses][:, mine]).any(), (q, w)
+
+
 @pytest.mark.parametrize("kernel,name", [
     (kernel, name) for kernel, names in sorted(time_blend.KNOCKOUTS.items())
     for name in sorted(names)])
 def test_knockouts_apply_to_the_kernel_source(kernel, name):
-    """Each knockout that tools/time_blend.py times K1 or K2 against edits
-    csrc/blend_<kernel>.cu exactly where it says: without-box leaves the
-    shared box included but never computed, and every warp's box test
-    unbounded; block-stop makes the warp stop never fire, at all three of
-    its tests (after staging, after each live entry, and its definition);
-    whole-tile launches one 256-thread block per tile in place of two
-    128-thread blocks."""
-    source = (kernels.CSRC_DIR / f"blend_{kernel}.cu").read_text()
+    """Each knockout that tools/time_blend.py times K1, K2, X3 or X4b
+    against edits its source (csrc/<KERNELS[kernel]>.cu) exactly where it
+    says: without-box leaves the shared box included but never computed,
+    and every warp's box unbounded (K1's and K2's box test, X3's and X4b's
+    bit per warp); block-stop makes the warp stop
+    never fire, at all three of its tests (after staging, after each live
+    entry, and its definition); whole-tile launches one 256-thread block per
+    tile in place of two 128-thread blocks; shuffle-trees sums X4b's nine
+    lanes with nine 5-step xor trees in place of the butterfly;
+    quadrant-blocks puts one quadrant in a block in place of four."""
+    source = (kernels.CSRC_DIR / f"{time_blend.KERNELS[kernel]}.cu"
+              ).read_text()
     edited = time_blend.knockout_source(source, kernel, name)
     assert edited != source
     assert '#include "cull_box.cuh"' in edited
     if name == "without-box":
         assert source.count("cull_box(") == 1 and "cull_box(" not in edited
         assert "s_box[i]" not in edited
+        assert ("make_float4(-CUDART_INF_F, CUDART_INF_F, -CUDART_INF_F, "
+                "CUDART_INF_F)") in edited
     elif name == "block-stop":
         assert "__all_sync(" in source and "__all_sync(" not in edited
         assert edited.count("warp_stopped(") == 3
         assert "__syncthreads_count" in edited
-    else:
-        assert name == "whole-tile"
+    elif name == "whole-tile":
         assert "kThreads = 128" in source and "kHalves = 2" in source
         assert "kThreads = 256" in edited and "kHalves = 1" in edited
         assert "<<<kHalves * num_blocks, kThreads" in edited
         assert "__launch_bounds__(kThreads, kMinBlocks)" in edited
+    elif name == "shuffle-trees":
+        assert "butterfly9(acc, lane)" in source
+        assert "butterfly9(acc, lane)" not in edited
+        assert edited.count("__shfl_xor_sync(0xffffffffu, v, off)") == 1
+        assert "if (g == my_sum) total = v;" in edited
+    else:
+        assert name == "quadrant-blocks"
+        assert "kQuadsPerBlock = 4;" in source
+        assert "kQuadsPerBlock = 1;" in edited
+        assert "kThreads = kQuadThreads * kQuadsPerBlock" in edited
+        assert "quad_sync(slot)" in edited
 
 
 def test_library_path_hashes_the_headers(tmp_path, monkeypatch):

@@ -2,9 +2,13 @@
 blend_pair_counts, which counts the entry-pixel pairs of each kind a
 forward (K1's loop) and a backward (K2's) evaluate, against a count made
 pixel by pixel, for K1's 32 px tiles, X4's 16 px quadrants and X1's bf16
-chain; and k1_cull_counts and k2_cull_counts, K1's and K2's warp skips,
-against a count made warp by warp with the kernels' own thread-to-pixel
-map, as is tools/time_blend.py's share of stopping pixels and warps; and
+chain; k1_cull_counts, k2_cull_counts, x3_cull_counts and
+x4b_cull_counts, K1's, K2's, X3's and X4b's warp skips, against a count
+made warp by warp with the kernels' own thread-to-pixel map, as is
+tools/time_blend.py's share of stopping pixels and warps; issue_bound,
+X2's bound at the card's issue rates, against hand-worked numbers;
+sass_loop_counts, the count of a main loop's instructions by class that
+checks X2_SASS, on a listing in cuobjdump's layout; and
 the online phase's helpers: its in-memory sequence (tools/synth_replica.py)
 and the correction ops it makes and its CPU twin; and the euroc phase's:
 the gravity angle, the share of disparities near the truth, the sgm
@@ -251,6 +255,236 @@ def test_k2_cull_counts_match_a_count_by_warp():
     assert want["contributing_in_skipped"] == 0
     assert want["skipped_by_box"] > 0 and want["skipped_by_n_contrib"] > 0
     assert want["contributing_path_runs"] > 0
+
+
+def group_death_index(alpha, ok, counts, group):
+    """Per tile and pixel, the entry at which blend_vec_plain's groups kill
+    the pixel (the first contributing one whose T s < 1e-4, s the running
+    product of the group's contributing 1 - alpha, T the transmittance
+    before the group), or the count when it never dies, walking each pixel
+    on its own: alpha, ok [B, K, P] numpy."""
+    nb, _, npix = alpha.shape
+    death = np.array([[counts[b]] * npix for b in range(nb)])
+    one = np.float32(1.0)
+    for b in range(nb):
+        for p in range(npix):
+            trans = one
+            for g0 in range(0, counts[b], group):
+                s, applied = one, one
+                for k in range(g0, min(g0 + group, counts[b])):
+                    if not ok[b, k, p]:
+                        continue
+                    om = one - alpha[b, k, p]
+                    s = s * om
+                    if trans * s >= blend_mod.T_EPS:
+                        applied = applied * om
+                    else:
+                        death[b, p] = k
+                        break
+                if death[b, p] < counts[b]:
+                    break
+                trans = trans * applied
+    return death
+
+
+def test_x3_cull_counts_match_a_count_by_warp():
+    """chip_smoke.x3_cull_counts against a walk of each pixel through X3's
+    groups and csrc/blend_vec_fwd.cu's warps (K1's map): small splats in
+    tiles 0 and 2, so that the box misses most warps; opaque ones in tiles
+    1 and 3, so that whole warps die, some within their first group."""
+    tiles_x, nb, k, group = 2, 4, 160, 64
+    d, c = packed_tiles(nb, k, tiles_x, seed=13)
+    d[0::2, :, 2:5] *= 4.0
+    d[1::2, :, 5] = np.maximum(d[1::2, :, 5], 0.9)
+    data, counts = torch.from_numpy(d), torch.from_numpy(c)
+    got = cs.x3_cull_counts(torch, blend_mod, group, data, counts, tiles_x)
+
+    owner, _ = kernel_warp_of_pixel()
+    px, py = cs.tile_pixels(torch, nb, tiles_x, 32, "cpu")
+    terms = [blend_mod.pair_terms(data[:, j], px, py) for j in range(k)]
+    alpha = torch.stack([t[5] for t in terms], 1).numpy()
+    ok = torch.stack([t[6] for t in terms], 1).numpy()
+    death = group_death_index(alpha, ok, c, group)
+    px, py = px.numpy(), py.numpy()
+    want = dict.fromkeys(got, 0)
+    for j in range(int(c.max())):
+        box = blend_mod.entry_cull_boxes(data[:, j]).numpy()
+        for b in range(nb):
+            if j >= c[b]:
+                continue
+            for w in range(8):
+                mine = owner == w
+                want["entry_warp_pairs"] += 1
+                x, y = px[b, mine], py[b, mine]
+                if (death[b, mine] < j).all():
+                    want["skipped_by_warp_stop"] += 1
+                elif (box[b, 1] < x.min() or box[b, 0] > x.max()
+                      or box[b, 3] < y.min() or box[b, 2] > y.max()):
+                    want["skipped_by_box"] += 1
+                else:
+                    continue
+                # Applied or killing: contributing, at or before the death.
+                want["contributing_in_skipped"] += int(
+                    (ok[b, j, mine] & (j <= death[b, mine])).sum())
+    assert got == want
+    assert want["contributing_in_skipped"] == 0
+    assert want["skipped_by_box"] > 0 and want["skipped_by_warp_stop"] > 0
+    # Some warps die within the first group, at an entry past the first.
+    assert 0 < death[1].min() < group
+
+
+def quadrant_warp_of_pixel():
+    """csrc/blend16_bwd.cu's map: warp w of a quadrant, lane l = lx + 8 ly
+    hold quadrant-local pixel (lx + 8 (j & 1), 8 w + ly + 4 (j >> 1)) in
+    slot j. Returns each of the 256 pixels' warp and slot."""
+    owner, slot = np.full(256, -1), np.full(256, -1)
+    for w in range(2):
+        for lane in range(32):
+            lx, ly = lane & 7, lane >> 3
+            for j in range(4):
+                p = (8 * w + ly + 4 * (j >> 1)) * 16 + lx + 8 * (j & 1)
+                assert owner[p] == -1
+                owner[p], slot[p] = w, j
+    assert (owner >= 0).all()
+    return owner, slot
+
+
+def test_x4b_cull_counts_match_a_count_by_warp():
+    """chip_smoke.x4b_cull_counts against a count made warp by warp with
+    csrc/blend16_bwd.cu's map, on a quadrant table whose splats straddle
+    the quadrants' borders: small ones, so that the box misses one of a
+    quadrant's two warps, and some opaque ones, so that n_contrib cuts the
+    walk of one warp before the other's."""
+    rng = np.random.RandomState(21)
+    nb, k = 2, 64
+    tab = np.zeros((nb, k, 4, 16), np.float32)
+    # Means in image pixels of each 32 px block, near the quadrants'
+    # borders (16) and the blocks' edges, then shifted to each quadrant's
+    # local pixels as exp_blend16.quadrant_table shifts them.
+    img = rng.uniform(-4, 36, (nb, k, 2))
+    img[:, ::3] = 16.0 + rng.uniform(-3, 3, (nb, (k + 2) // 3, 2))
+    for q in range(4):
+        tab[:, :, q, 0:2] = img - 16.0 * np.array([q % 2, q // 2])
+    inv = 1.0 / rng.uniform(0.5, 6.0, (nb, k)) ** 2
+    tab[..., 2] = inv[..., None]
+    tab[..., 4] = (inv * rng.uniform(0.5, 2.0, (nb, k)))[..., None]
+    tab[..., 3] = (0.2 * inv * rng.uniform(-1, 1, (nb, k)))[..., None]
+    tab[..., 5] = rng.uniform(0.02, 0.4, (nb, k, 1))
+    tab[:, 40:, :, 5] = 0.95     # opaque at the back: n_contrib stops short
+    tab[..., 6:9] = rng.rand(nb, k, 1, 3)
+    d16c = torch.from_numpy(tab)
+    counts = torch.tensor([64, 50, 0, 31, 64, 64, 12, 45], dtype=torch.int32)
+    nc = tx4._quadrant_pixels(tx4.blend16_fwd_plain(d16c, counts, nb)[2])
+    rows = tx4._quadrant_rows(d16c)
+    got = cs.x4b_cull_counts(torch, blend_mod, rows, counts, nc)
+
+    owner, slot = quadrant_warp_of_pixel()
+    lx, ly = tx4._local_pixels("cpu", torch.float32)
+    x, y = lx[0].numpy(), ly[0].numpy()
+    want = dict.fromkeys(got, 0)
+    for j in range(int(counts.max())):
+        row = rows[:, j]
+        box = blend_mod.entry_cull_boxes(row).numpy()
+        contrib = ((j < nc) & blend_mod.pair_terms(row, lx, ly)[-1]).numpy()
+        for qi in range(4 * nb):
+            if j >= counts[qi]:
+                continue
+            for w in range(2):
+                mine = owner == w
+                want["entry_warp_pairs"] += 1
+                if j >= int(nc[qi, mine].max()):
+                    want["skipped_by_n_contrib"] += 1
+                elif (box[qi, 1] < x[mine].min() or box[qi, 0] > x[mine].max()
+                      or box[qi, 3] < y[mine].min()
+                      or box[qi, 2] > y[mine].max()):
+                    want["skipped_by_box"] += 1
+                else:
+                    want["contributing_path_runs"] += len(set(
+                        slot[mine & contrib[qi]]))
+                    continue
+                want["contributing_in_skipped"] += int(contrib[qi,
+                                                               mine].sum())
+    assert got == want
+    assert want["contributing_in_skipped"] == 0
+    assert want["skipped_by_box"] > 0 and want["skipped_by_n_contrib"] > 0
+    assert want["contributing_path_runs"] > 0
+    # The skip by n_contrib is the warp's own: some warp stops before the
+    # other warp of its quadrant.
+    nc_w = nc.reshape(4 * nb, 2, 128).amax(-1)
+    assert (nc_w[:, 0] != nc_w[:, 1]).any()
+
+
+def test_issue_bound():
+    """X2's issue-slot bound against hand-worked numbers: X2a's f32 chain
+    (4 f32 instructions and a maximum per element and iteration) on
+    [512, 64, 1024] x 256 iterations takes the issue slots,
+    42.95 G / (132 x 128 x 1.98 GHz) = 1.2838 ms; a maximum at half rate
+    does not bind; an exp chain of one MUFU.EX2 and 6 other instructions
+    an element binds at the special-function rate, 16 per clock."""
+    n = 512 * 64 * 1024
+    clock = 1.98e9
+    t, by = cs.issue_bound({"f32": 4, "minmax": 1}, n * 256, clock)
+    assert by == "issue"
+    assert t == pytest.approx(n * 256 * 5 / (132 * 128 * clock))
+    assert round(t * 1e3, 4) == 1.2838
+    # Two maximums (as if the compare took half the f32 rate): still the
+    # issue slots, 6 of them.
+    t2, _ = cs.issue_bound({"f32": 4, "minmax": 2}, n * 256, clock)
+    assert t2 == pytest.approx(t * 6 / 5)
+    # 1.074 G exps at 16 per clock: 0.2568 ms, above the issue slots'
+    # 7 / 128 per element.
+    t3, by3 = cs.issue_bound({"f32": 5, "int": 1, "mufu": 1}, n * 32, clock)
+    assert by3 == "mufu"
+    assert round(t3 * 1e3, 4) == 0.2568
+    # An integer-heavy mix binds at the integer units' 64.
+    t4, by4 = cs.issue_bound({"int": 3, "other": 1}, 1000, 1.0, sms=1)
+    assert by4 == "int" and t4 == pytest.approx(1000 * 3 / 64)
+    # Unlisted classes take issue slots only.
+    t5, by5 = cs.issue_bound({"other": 256}, 1, 1.0, sms=1)
+    assert by5 == "issue" and t5 == 2.0
+    # X2's bounds price what the functions need: X2a f32 is the chain
+    # above, and the built loops issue at least that in every class.
+    assert cs.issue_bound(cs.X2_NEEDED[("chain", "float32")], n * 256,
+                          clock) == (t, "issue")
+    for key, need in cs.X2_NEEDED.items():
+        assert all(cs.X2_SASS[key].get(c, 0) >= k for c, k in need.items())
+
+
+# A SASS listing in cuobjdump's layout: a remainder loop (0x0040-0x0060)
+# after a main loop unrolled twice (0x0000-0x0030), and a kernel's closing
+# branch to itself.
+SASS_LISTING = """
+\t\tFunction : _ZN12_GLOBAL__N_116other_kernelEv
+        /*0000*/                   FADD R1, R1, R1 ;          /* 0x0 */
+        /*0010*/               @P0 BRA 0x0 ;                  /* 0x0 */
+\t\tFunction : _ZN12_GLOBAL__N_116chain_f32_kernelEPKfPfxi
+        /*0000*/                   FMUL R4, R7.reuse, R4 ;    /* 0x0 */
+                                                              /* 0x0 */
+        /*0010*/                   HFMA2.MMA R3, -RZ, RZ, 0, 0 ; /* 0x0 */
+        /*0020*/                   FMNMX.NAN R7, R7, R6, !PT ; /* 0x0 */
+        /*0030*/                   FFMA.SAT R4, R4, R4, 0.5 ; /* 0x0 */
+        /*0040*/                   FMNMX.NAN R7, R7, R6, !PT ; /* 0x0 */
+        /*0050*/                   ISETP.NE.AND P1, PT, R3, RZ, PT ; /* 0x0 */
+        /*0060*/               @P1 BRA 0x0 ;                  /* 0x0 */
+        /*0070*/                   HMUL2.BF16_V2 R6, R6, R3 ; /* 0x0 */
+        /*0080*/               @P0 BRA 0x70 ;                 /* 0x0 */
+        /*0090*/                   EXIT ;                     /* 0x0 */
+        /*00a0*/                   BRA 0xa0;                  /* 0x0 */
+"""
+
+
+def test_sass_loop_counts():
+    """sass_loop_counts takes the named function's longest backward-branch
+    loop and divides it by its items, classing a move of a constant
+    (HFMA2.MMA without .BF16_V2) as other."""
+    got = cs.sass_loop_counts(SASS_LISTING, "chain_f32_kernel", "minmax", 1)
+    assert got == {"f32": 1.0, "minmax": 1.0, "int": 0.5, "other": 1.0}
+    assert cs.sass_class("HFMA2.MMA.BF16_V2") == "bf16x2"
+    assert cs.sass_class("FMNMX.NAN") == "minmax"
+    assert cs.sass_class("MUFU.EX2") == "mufu"
+    assert cs.sass_class("F2FP.BF16.F32.PACK_AB") == "cvt"
+    assert cs.sass_class("SHF.L.U32") == "int"
+    assert cs.sass_class("MOV") == "other"
 
 
 # ---------------------------------------------------------------------------
