@@ -171,12 +171,39 @@ blend_fwd.launches = 0
 # whose comment derives it): relative and absolute slack for the
 # kernel's rounding of the power and of alpha, the margins of
 # ops/preprocess.py::tight_extents (L x 1.001, +1 px), and the smallest
-# det' / (a c) that counts as bounded.
+# det' / (a c) that counts as bounded. X1's bf16 chain has its own slack
+# and threshold, and an unbounded box from an opacity or mean of 2^64 up.
 CULL_REL = 1e-6
 CULL_ABS = 1e-6
 CULL_SCALE = 1.001
 CULL_PAD = 1.0
 CULL_MIN_DET = 1e-9
+BF16_CULL_REL = 0.025
+BF16_CULL_ABS = 0.012
+BF16_CULL_HUGE = 2.0 ** 64
+BF16_ALPHA_MIN = 0.003936767578125   # bf16(1/255)
+
+
+def _cull_boxes(f: torch.Tensor, amin: float, rel: float,
+                abs_: float) -> torch.Tensor:
+    """The boxes of entry_cull_boxes for f32 terms f [..., 6] (mx, my, a, b,
+    c, o), a chain's threshold amin and its slack rel, abs_."""
+    mx, my, a, b, c, o = f.unbind(-1)
+    finite = torch.isfinite(f).all(-1)
+    empty = finite & (o < amin)
+    g_lo, g_hi = 1.0 - rel, 1.0 + rel
+    ad, bd, cd = a.double(), b.double(), c.double()
+    det = ad * cd * (g_lo * g_lo) - bd * bd * (g_hi * g_hi)
+    bounded = finite & ~empty & (ad > 0.0) & (det > CULL_MIN_DET * ad * cd)
+    l2 = 2.0 * (CULL_SCALE * (torch.log(o.double() / amin) + abs_))
+    ex = torch.sqrt(l2 * cd * g_lo / det).float() + CULL_PAD
+    ey = torch.sqrt(l2 * ad * g_lo / det).float() + CULL_PAD
+    box = torch.stack([mx - ex, mx + ex, my - ey, my + ey], dim=-1)
+    inf = float("inf")
+    other = torch.where(empty[..., None],
+                        box.new_tensor([inf, -inf, inf, -inf]),
+                        box.new_tensor([-inf, inf, -inf, inf]))
+    return torch.where(bounded[..., None], box, other)
 
 
 def entry_cull_boxes(data: torch.Tensor) -> torch.Tensor:
@@ -188,24 +215,31 @@ def entry_cull_boxes(data: torch.Tensor) -> torch.Tensor:
     +inf, -inf) where opacity < 1/255, unbounded (-inf, +inf, -inf, +inf)
     where a term is not finite, a <= 0 or the widened conic is (nearly)
     singular."""
-    f = data[..., :6].to(torch.float32)
-    mx, my, a, b, c, o = f.unbind(-1)
-    finite = torch.isfinite(f).all(-1)
-    empty = finite & (o < ALPHA_MIN)
-    g_lo, g_hi = 1.0 - CULL_REL, 1.0 + CULL_REL
-    ad, bd, cd = a.double(), b.double(), c.double()
-    det = ad * cd * (g_lo * g_lo) - bd * bd * (g_hi * g_hi)
-    bounded = finite & ~empty & (ad > 0.0) & (det > CULL_MIN_DET * ad * cd)
     amin = float(torch.tensor(ALPHA_MIN, dtype=torch.float32))
-    l2 = 2.0 * (CULL_SCALE * (torch.log(o.double() / amin) + CULL_ABS))
-    ex = torch.sqrt(l2 * cd * g_lo / det).float() + CULL_PAD
-    ey = torch.sqrt(l2 * ad * g_lo / det).float() + CULL_PAD
-    box = torch.stack([mx - ex, mx + ex, my - ey, my + ey], dim=-1)
+    return _cull_boxes(data[..., :6].to(torch.float32), amin, CULL_REL,
+                       CULL_ABS)
+
+
+def entry_cull_boxes_bf16(data: torch.Tensor, ox: torch.Tensor,
+                          oy: torch.Tensor) -> torch.Tensor:
+    """X1's boxes (csrc/cull_box.cuh::cull_box_bf16): [..., 4] float32 in
+    the tile-local frame of packed entry rows [..., 16] of tiles at origins
+    ox, oy (f32, shaped as data[..., 0] or broadcast to it). Every tile-local
+    pixel at which X1's bf16 chain (tools/exp_blend_bf16.py::
+    power_alpha_bf16) finds power <= 0 and alpha >= bf16(1/255) lies inside
+    its entry's box. Computed from the values that chain sees: mx' =
+    bf16(x - ox), my', and a, b, c, o rounded to bf16. Empty and unbounded
+    as entry_cull_boxes, and unbounded where o' or |mx'| or |my'| is 2^64 or
+    more."""
+    f = data[..., :6].to(torch.float32)
+    mean = torch.stack([f[..., 0] - ox, f[..., 1] - oy], dim=-1)
+    f = torch.cat([mean, f[..., 2:]], dim=-1).to(torch.bfloat16).float()
+    box = _cull_boxes(f, BF16_ALPHA_MIN, BF16_CULL_REL, BF16_CULL_ABS)
+    huge = ((f[..., 5] >= BF16_CULL_HUGE)
+            | (f[..., 0:2].abs() >= BF16_CULL_HUGE).any(-1))
     inf = float("inf")
-    other = torch.where(empty[..., None],
-                        box.new_tensor([inf, -inf, inf, -inf]),
-                        box.new_tensor([-inf, inf, -inf, inf]))
-    return torch.where(bounded[..., None], box, other)
+    return torch.where(huge[..., None], box.new_tensor([-inf, inf, -inf, inf]),
+                       box)
 
 
 def blend_bwd_plain(data_tiles: torch.Tensor, counts: torch.Tensor,

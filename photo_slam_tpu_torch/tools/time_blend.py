@@ -1,7 +1,8 @@
-"""Time a blend kernel, the forward K1, the backward K2, the group-vectorized
-forward X3 or the 16 px quadrant backward X4b, against builds of its source
-with a part knocked out or against another source of it, on the production
-pass-1 tiles (X4b: X4's 16 px quadrant table of the same view), in turns.
+"""Time a blend kernel, the forward K1, the backward K2, the bf16 forward X1,
+the group-vectorized forward X3 or the 16 px quadrant forward X4f or
+backward X4b, against builds of its source with a part knocked out or
+against another source of it, on the production pass-1 tiles (X4f, X4b:
+X4's 16 px quadrant table of the same view), in turns.
 
 The room scene (bench_room.room_view, 300,000 Gaussians, seed 0) binned at
 32 px (k_dup 6, K 1024: [836, 1024, 16]). `--kernel fwd` times K1
@@ -11,10 +12,15 @@ times K2 (csrc/blend_bwd.cu) on them, blended forward by K1, with seeded
 random cotangents of the colour and of final_T, each build first held
 against blend_bwd_plain as chip_smoke.py holds K2 (per-lane error within
 1e-4 of the lane's max, rows past counts_eff and lanes 9-15 zero).
+`--kernel x1` times X1 (csrc/blend_bf16_fwd.cu) on the pass-1 tiles, each
+build held bit for bit against exp_blend_bf16.call_bf16_plain.
 `--kernel x3` times X3 (csrc/blend_vec_fwd.cu) on the pass-1 tiles, each
 build held against blend_vec_plain as chip_smoke.py holds X3 (colour and T
 within 1e-5, n_contrib differing at no more than 1e-4 of the pixels).
-`--kernel x4b` times X4b (csrc/blend16_bwd.cu) on the view's 16 px
+`--kernel x4f` times X4f (csrc/blend16_fwd.cu) on the view's 16 px
+quadrant table [B, 768, 4, 16] (exp_blend16.bin16, quadrant_table) with
+the raw quadrant counts, each build held bit for bit against
+blend16_fwd_plain. `--kernel x4b` times X4b (csrc/blend16_bwd.cu) on the view's 16 px
 quadrant table [B, 768, 4, 16] (exp_blend16.bin16, quadrant_table),
 blended forward by X4f, with seeded random cotangents and the raw
 quadrant counts, as exp_blend16.run calls it, each build held against
@@ -44,9 +50,18 @@ Every build uses the kernels' nvcc flags and finds csrc/'s headers:
                    of two blocks of 128, one per half tile.
   bwd without-box  no per-entry box: a warp skips an entry only by
                    n_contrib.
+  x1 without-box   an unbounded bf16 box: every warp takes every entry
+                   until all its pixels have stopped.
+  x1 block-stop    as fwd's.
   x3 without-box   an unbounded box: every warp takes every entry until
                    all its pixels are dead.
   x3 block-stop    as fwd's: the block stops once per batch of 128 rows.
+  x4f without-box  an unbounded box: every warp takes every entry until
+                   all its pixels have stopped.
+  x4f block-stop   no warp stop: a warp walks on until both warps of its
+                   quadrant have stopped, checked once per batch of 64 rows.
+  x4f quadrant-blocks  one 64-thread block per quadrant in place of one
+                   256-thread block per 32 px block.
   x4b without-box  an unbounded box: a warp skips an entry only by
                    n_contrib.
   x4b shuffle-trees  nine 5-step shuffle trees (45 shuffles) in place of
@@ -58,6 +73,12 @@ Every build uses the kernels' nvcc flags and finds csrc/'s headers:
     python -m photo_slam_tpu_torch.tools.time_blend --kernel fwd \\
         --knockout without-box --knockout block-stop \\
         --knockout whole-tile --baseline build/blend_fwd_earlier.cu
+    python -m photo_slam_tpu_torch.tools.time_blend --kernel x1 \\
+        --knockout without-box --knockout block-stop \\
+        --baseline build/blend_bf16_fwd_earlier.cu
+    python -m photo_slam_tpu_torch.tools.time_blend --kernel x4f \\
+        --knockout without-box --knockout block-stop \\
+        --knockout quadrant-blocks --baseline build/blend16_fwd_earlier.cu
     python -m photo_slam_tpu_torch.tools.time_blend --kernel x3 \\
         --knockout without-box --knockout block-stop \\
         --baseline build/blend_vec_fwd_earlier.cu
@@ -92,6 +113,7 @@ from photo_slam_tpu_torch.ops import blend as blend_mod
 from photo_slam_tpu_torch.ops.render import RenderSettings, render
 from photo_slam_tpu_torch.tools import bench_room, variants
 from photo_slam_tpu_torch.tools import exp_blend16 as x4
+from photo_slam_tpu_torch.tools import exp_blend_bf16 as x1
 from photo_slam_tpu_torch.tools import exp_blend_vec as x3
 
 RTOL = 1e-4        # K2 and X4b: per-lane error within this of the lane's max
@@ -110,21 +132,25 @@ WITHOUT_BOX = (
      "const float4 box = make_float4(-CUDART_INF_F, CUDART_INF_F, "
      "-CUDART_INF_F, CUDART_INF_F);"),
 )
-# X3 and X4b keep one bit per warp and row (s_reach) in place of the box:
-# an unbounded box reaches every warp.
+# X1, X3, X4f and X4b keep one bit per warp and row (s_reach) in place of
+# the box: an unbounded box reaches every warp.
+UNBOUNDED = ("const float4 box = make_float4(-CUDART_INF_F, CUDART_INF_F, "
+             "-CUDART_INF_F, CUDART_INF_F);")
 WITHOUT_REACH = (
     ("const float4 box = cull_box(r0.x, r0.y, r0.z, r0.w, r1.x, r1.y);",
-     "const float4 box = make_float4(-CUDART_INF_F, CUDART_INF_F, "
-     "-CUDART_INF_F, CUDART_INF_F);"),
+     UNBOUNDED),
 )
+BLOCK_STOP = (("  return __all_sync(0xffffffffu, mine_done);",
+               "  return false;"),)
 # The kernel source (csrc/<name>.cu) and launcher of each --kernel.
-KERNELS = {"fwd": "blend_fwd", "bwd": "blend_bwd", "x3": "blend_vec_fwd",
-           "x4b": "blend16_bwd"}
+KERNELS = {"fwd": "blend_fwd", "bwd": "blend_bwd", "x1": "blend_bf16_fwd",
+           "x3": "blend_vec_fwd", "x4f": "blend16_fwd", "x4b": "blend16_bwd"}
+QUADRANT_BLOCKS = (("constexpr int kQuadsPerBlock = 4;",
+                    "constexpr int kQuadsPerBlock = 1;"),)
 KNOCKOUTS = {
     "fwd": {
         "without-box": WITHOUT_BOX,
-        "block-stop": (("  return __all_sync(0xffffffffu, mine_done);",
-                        "  return false;"),),
+        "block-stop": BLOCK_STOP,
         "whole-tile": (
             ("constexpr int kThreads = 128;", "constexpr int kThreads = 256;"),
             ("constexpr int kHalves = 2;", "constexpr int kHalves = 1;"),
@@ -132,9 +158,16 @@ KNOCKOUTS = {
         ),
     },
     "bwd": {"without-box": WITHOUT_BOX},
+    "x1": {"without-box": ((
+        "const float4 box =\n"
+        "          cull_box_bf16(mf.x, mf.y, abf.x, abf.y, cof.x, cof.y);",
+        UNBOUNDED),),
+           "block-stop": BLOCK_STOP},
     "x3": {"without-box": WITHOUT_REACH,
            "block-stop": (("  return __all_sync(0xffffffffu, mine_dead);",
                            "  return false;"),)},
+    "x4f": {"without-box": WITHOUT_REACH, "block-stop": BLOCK_STOP,
+            "quadrant-blocks": QUADRANT_BLOCKS},
     "x4b": {
         "without-box": WITHOUT_REACH,
         "shuffle-trees": ((
@@ -148,8 +181,7 @@ KNOCKOUTS = {
             "              v += __shfl_xor_sync(0xffffffffu, v, off);\n"
             "            if (g == my_sum) total = v;\n"
             "          }\n"),),
-        "quadrant-blocks": (("constexpr int kQuadsPerBlock = 4;",
-                             "constexpr int kQuadsPerBlock = 1;"),),
+        "quadrant-blocks": QUADRANT_BLOCKS,
     },
 }
 
@@ -238,6 +270,17 @@ def stop_shares(t) -> tuple[float, float]:
     return float(done.float().mean()), float(warps.float().mean())
 
 
+def exact(want):
+    """check(outputs) of a forward that must equal `want` bit for bit."""
+    def check(got):
+        err = max(float((g - w).abs().max()) for g, w in zip(got[:2],
+                                                              want[:2]))
+        same = all(torch.equal(g, w) for g, w in zip(got, want))
+        return same, f"max abs err {err:.3e}, n_contrib " + (
+            "identical" if torch.equal(got[2], want[2]) else "differs")
+    return check
+
+
 def fwd_case(t, dev):
     """(call(fn) -> outputs, check(outputs)) of K1 on the tiles."""
     nb = t.num_tiles
@@ -252,14 +295,7 @@ def fwd_case(t, dev):
                  torch.cuda.current_stream().cuda_stream)
         kernels.check_launch("blend_fwd", err)
         return out
-
-    def check(got):
-        err = max(float((g - w).abs().max()) for g, w in zip(got[:2],
-                                                              want[:2]))
-        same = all(torch.equal(g, w) for g, w in zip(got, want))
-        return same, f"max abs err {err:.3e}, n_contrib " + (
-            "identical" if torch.equal(got[2], want[2]) else "differs")
-    return call, check
+    return call, exact(want)
 
 
 def bwd_case(t, dev):
@@ -297,10 +333,11 @@ def bwd_case(t, dev):
     return call, check
 
 
-def x3_case(t, dev):
-    """(call(fn) -> outputs, check(outputs)) of X3 on the tiles."""
+def tile_case(t, launcher, want):
+    """call(fn) -> outputs of a forward on identity tiles whose launcher
+    takes (data, counts, num_tiles, k_max, tiles_x, color, final_t,
+    n_contrib, stream): X1 and X3."""
     nb = t.num_tiles
-    want = x3.blend_vec_plain(t.data, t.counts, t.tiles_x, nb)
 
     def call(fn):
         out = (t.data.new_empty(want[0].shape), t.data.new_empty(
@@ -308,8 +345,20 @@ def x3_case(t, dev):
         err = fn(t.data.data_ptr(), t.counts.data_ptr(), nb, t.data.shape[1],
                  t.tiles_x, *(x.data_ptr() for x in out),
                  torch.cuda.current_stream().cuda_stream)
-        kernels.check_launch("blend_vec_fwd", err)
+        kernels.check_launch(launcher, err)
         return out
+    return call
+
+
+def x1_case(t, dev):
+    """(call(fn) -> outputs, check(outputs)) of X1 on the tiles."""
+    want = x1.call_bf16_plain(t.data, t.counts, t.tiles_x, t.num_tiles)
+    return tile_case(t, "blend_bf16_fwd", want), exact(want)
+
+
+def x3_case(t, dev):
+    """(call(fn) -> outputs, check(outputs)) of X3 on the tiles."""
+    want = x3.blend_vec_plain(t.data, t.counts, t.tiles_x, t.num_tiles)
 
     def check(got):
         err = max(float((g - w).abs().max()) for g, w in zip(got[:2],
@@ -317,17 +366,42 @@ def x3_case(t, dev):
         mism = float((got[2] != want[2]).float().mean())
         return (err <= VEC_ATOL and mism <= VEC_NC_MISMATCH,
                 f"max abs err {err:.3e}, n_contrib mismatch {mism:.2e}")
-    return call, check
+    return tile_case(t, "blend_vec_fwd", want), check
+
+
+def quadrant_table(view, opacity=None):
+    """(path, d16c) of X4's 16 px path of the view, every opacity set to
+    `opacity` if given."""
+    path = x4.bin16(view)
+    d16c = x4.quadrant_table(view.feat.detach(), path).contiguous()
+    if opacity is not None:
+        d16c[..., 5] = opacity
+    return path, d16c
+
+
+def x4f_case(view, dev, opacity=None):
+    """(call(fn) -> outputs, check(outputs)) of X4f on the view's 16 px
+    quadrant table."""
+    path, d16c = quadrant_table(view, opacity)
+    nb, cq = path.num_blocks, path.counts_q
+    want = x4.blend16_fwd_plain(d16c, cq, nb)
+
+    def call(fn):
+        out = (d16c.new_empty(want[0].shape), d16c.new_empty(want[1].shape),
+               cq.new_empty(want[2].shape))
+        err = fn(d16c.data_ptr(), cq.data_ptr(), nb, d16c.shape[1],
+                 *(x.data_ptr() for x in out),
+                 torch.cuda.current_stream().cuda_stream)
+        kernels.check_launch("blend16_fwd", err)
+        return out
+    return call, exact(want), list(d16c.shape)
 
 
 def x4b_case(view, dev, opacity=None):
     """(call(fn) -> d_data, check(d_data)) of X4b on the view's 16 px
     quadrant table, blended forward by X4f."""
-    path = x4.bin16(view)
+    path, d16c = quadrant_table(view, opacity)
     nb, cq = path.num_blocks, path.counts_q
-    d16c = x4.quadrant_table(view.feat.detach(), path).contiguous()
-    if opacity is not None:
-        d16c[..., 5] = opacity
     _, final_t, n_contrib = x4.blend16_fwd(d16c, cq, nb)
     gen = torch.Generator(device=dev).manual_seed(1)
     g_color = torch.randn((nb, 3, 8, 128), generator=gen, device=dev)
@@ -403,8 +477,9 @@ def main(argv=None) -> int:
     else:
         view = bench_room.room_view(device=dev)
     stopped = (None, None)
-    if args.kernel == "x4b":
-        call, check, shape = x4b_case(view, dev, args.opacity)
+    if args.kernel in ("x4f", "x4b"):
+        call, check, shape = {"x4f": x4f_case, "x4b": x4b_case}[args.kernel](
+            view, dev, args.opacity)
         print(f"{tag} {args.map} 16 px quadrant table {shape}", flush=True)
     else:
         t = bench_room.tiles32(view)
@@ -417,7 +492,7 @@ def main(argv=None) -> int:
         print(f"{tag} {args.map} tiles {shape}, {int(t.counts.sum())} rows: "
               f"{stopped[0]:.4f} of the pixels and {stopped[1]:.4f} of the "
               f"16 x 8 px warp blocks stop", flush=True)
-        call, check = {"fwd": fwd_case, "bwd": bwd_case,
+        call, check = {"fwd": fwd_case, "bwd": bwd_case, "x1": x1_case,
                        "x3": x3_case}[args.kernel](t, dev)
     for name, (fn, _) in builds.items():
         ok, what = check(call(fn))

@@ -1,7 +1,7 @@
 """K2's plain version (photo_slam_tpu_torch/ops/blend.py::blend_bwd_plain)
 and the differentiable pallas_blend against the JAX package's blend
 backward, run interpreted on the CPU, on identical packed tiles; the box
-that K1, K2, X3 and X4b skip their warps by (entry_cull_boxes, also in
+that K1, K2, X3, X4f and X4b skip their warps by (entry_cull_boxes, also in
 X4's 16 px quadrant frame), the knockouts of tools/time_blend.py, and the
 hash that names the kernels' libraries."""
 import jax
@@ -263,30 +263,35 @@ def test_cull_boxes_hold_every_contributing_pair_in_quadrant_frame(kinds,
     (kernel, name) for kernel, names in sorted(time_blend.KNOCKOUTS.items())
     for name in sorted(names)])
 def test_knockouts_apply_to_the_kernel_source(kernel, name):
-    """Each knockout that tools/time_blend.py times K1, K2, X3 or X4b
-    against edits its source (csrc/<KERNELS[kernel]>.cu) exactly where it
-    says: without-box leaves the shared box included but never computed,
-    and every warp's box unbounded (K1's and K2's box test, X3's and X4b's
-    bit per warp); block-stop makes the warp stop
-    never fire, at all three of its tests (after staging, after each live
-    entry, and its definition); whole-tile launches one 256-thread block per
-    tile in place of two 128-thread blocks; shuffle-trees sums X4b's nine
-    lanes with nine 5-step xor trees in place of the butterfly;
-    quadrant-blocks puts one quadrant in a block in place of four."""
+    """Each knockout that tools/time_blend.py times K1, K2, X1, X3, X4f or
+    X4b against edits its source (csrc/<KERNELS[kernel]>.cu) exactly where
+    it says: without-box leaves the shared box included but never computed
+    (X1's bf16 box, the others' f32 one), and every warp's box unbounded
+    (K1's and K2's box test, X1's, X3's, X4f's and X4b's bit per warp);
+    block-stop makes the warp stop never fire, at all three of its tests
+    (after staging, after each live entry, and its definition), and leaves
+    the block's exit (X4f: the quadrant's vote); whole-tile launches one
+    256-thread block per tile in place of two 128-thread blocks;
+    shuffle-trees sums X4b's nine lanes with nine 5-step xor trees in place
+    of the butterfly; quadrant-blocks puts one quadrant in a block in place
+    of four."""
     source = (kernels.CSRC_DIR / f"{time_blend.KERNELS[kernel]}.cu"
               ).read_text()
     edited = time_blend.knockout_source(source, kernel, name)
     assert edited != source
     assert '#include "cull_box.cuh"' in edited
     if name == "without-box":
-        assert source.count("cull_box(") == 1 and "cull_box(" not in edited
+        box = "cull_box_bf16(" if kernel == "x1" else "cull_box("
+        assert source.count(box) == 1 and box not in edited
         assert "s_box[i]" not in edited
         assert ("make_float4(-CUDART_INF_F, CUDART_INF_F, -CUDART_INF_F, "
                 "CUDART_INF_F)") in edited
     elif name == "block-stop":
-        assert "__all_sync(" in source and "__all_sync(" not in edited
+        stop = "return __all_sync(0xffffffffu, mine_"
+        assert stop in source and stop not in edited
         assert edited.count("warp_stopped(") == 3
-        assert "__syncthreads_count" in edited
+        assert ("quad_done(mine_done" if kernel == "x4f"
+                else "__syncthreads_count(mine_") in edited
     elif name == "whole-tile":
         assert "kThreads = 128" in source and "kHalves = 2" in source
         assert "kThreads = 256" in edited and "kHalves = 1" in edited

@@ -2,9 +2,10 @@
 blend_pair_counts, which counts the entry-pixel pairs of each kind a
 forward (K1's loop) and a backward (K2's) evaluate, against a count made
 pixel by pixel, for K1's 32 px tiles, X4's 16 px quadrants and X1's bf16
-chain; k1_cull_counts, k2_cull_counts, x3_cull_counts and
-x4b_cull_counts, K1's, K2's, X3's and X4b's warp skips, against a count
-made warp by warp with the kernels' own thread-to-pixel map, as is
+chain; k1_cull_counts, k2_cull_counts, x1_cull_counts, x3_cull_counts,
+x4f_cull_counts and x4b_cull_counts, K1's, K2's, X1's, X3's, X4f's and
+X4b's warp skips, against a count made warp by warp with the kernels' own
+thread-to-pixel map, as is
 tools/time_blend.py's share of stopping pixels and warps; issue_bound,
 X2's bound at the card's issue rates, against hand-worked numbers;
 sass_loop_counts, the count of a main loop's instructions by class that
@@ -412,6 +413,123 @@ def test_x4b_cull_counts_match_a_count_by_warp():
     # other warp of its quadrant.
     nc_w = nc.reshape(4 * nb, 2, 128).amax(-1)
     assert (nc_w[:, 0] != nc_w[:, 1]).any()
+
+
+def test_x1_cull_counts_match_a_count_by_warp():
+    """chip_smoke.x1_cull_counts against a walk of each pixel through X1's
+    bf16 chain and csrc/blend_bf16_fwd.cu's warps (K1's map), with its
+    bf16 box in the tile-local frame: small splats in tiles 0 and 2, so
+    that the box misses most warps; opaque ones in tiles 1 and 3, so that
+    whole warps stop; and a few elongated ones, whose bf16 box is
+    unbounded where K1's is not."""
+    tiles_x, nb, k = 2, 4, 96
+    d, c = packed_tiles(nb, k, tiles_x, seed=14)
+    d[0::2, :, 2:5] *= 4.0
+    d[1::2, :, 5] = np.maximum(d[1::2, :, 5], 0.9)
+    # b^2 / (a c) = 0.95: det' > 0 at K1's slack, <= 0 at X1's.
+    d[2, :8, 3] = np.sqrt(0.95 * d[2, :8, 2] * d[2, :8, 4])
+    data, counts = torch.from_numpy(d), torch.from_numpy(c)
+    got = cs.x1_cull_counts(torch, blend_mod, tx1, data, counts, tiles_x)
+
+    owner, _ = kernel_warp_of_pixel()
+    ox, oy, lx, ly = tx1.tile_frame(nb, tiles_x, "cpu")
+    pa = [tx1.power_alpha_bf16(data[:, j], ox, oy, lx, ly) for j in range(k)]
+    alpha = torch.stack([a.float() for _, a in pa], 1).numpy()
+    ok = torch.stack([(p <= 0) & (a >= tx1.ALPHA_MIN_BF16) for p, a in pa],
+                     1).numpy()
+    stop = stop_index(alpha, ok, c)
+    x, y = lx[0].float().numpy(), ly[0].float().numpy()
+    want = dict.fromkeys(got, 0)
+    for j in range(int(c.max())):
+        box = blend_mod.entry_cull_boxes_bf16(data[:, j], ox[:, 0],
+                                              oy[:, 0]).numpy()
+        box32 = blend_mod.entry_cull_boxes(data[:, j]).numpy()
+        for b in range(nb):
+            if j >= c[b]:
+                continue
+            want["rows"] += 1
+            want["unbounded_rows"] += int(box[b, 0] == -np.inf)
+            want["unbounded_rows_f32_box"] += int(box32[b, 0] == -np.inf)
+            for w in range(8):
+                mine = owner == w
+                want["entry_warp_pairs"] += 1
+                if (stop[b, mine] < j).all():
+                    want["skipped_by_warp_stop"] += 1
+                elif (box[b, 1] < x[mine].min() or box[b, 0] > x[mine].max()
+                      or box[b, 3] < y[mine].min()
+                      or box[b, 2] > y[mine].max()):
+                    want["skipped_by_box"] += 1
+                else:
+                    continue
+                # Applied or stopping: taken, at or before the stop.
+                want["contributing_in_skipped"] += int(
+                    (ok[b, j, mine] & (j <= stop[b, mine])).sum())
+    assert got == want
+    assert want["contributing_in_skipped"] == 0
+    assert want["skipped_by_box"] > 0 and want["skipped_by_warp_stop"] > 0
+    assert want["unbounded_rows"] >= 8 > want["unbounded_rows_f32_box"]
+
+
+def test_x4f_cull_counts_match_a_count_by_warp():
+    """chip_smoke.x4f_cull_counts against a walk of each pixel through
+    K1's loop at a quadrant's local pixels and csrc/blend16_fwd.cu's map
+    (X4b's), on a quadrant table whose splats straddle the quadrants'
+    borders: small ones, so that the box misses one of a quadrant's two
+    warps, and in block 1 wide opaque ones, so that whole warps stop, one
+    before the other of its quadrant."""
+    rng = np.random.RandomState(22)
+    nb, k = 2, 64
+    tab = np.zeros((nb, k, 4, 16), np.float32)
+    img = rng.uniform(-4, 36, (nb, k, 2))
+    img[:, ::3] = 16.0 + rng.uniform(-3, 3, (nb, (k + 2) // 3, 2))
+    for q in range(4):
+        tab[:, :, q, 0:2] = img - 16.0 * np.array([q % 2, q // 2])
+    inv = 1.0 / rng.uniform(0.5, 6.0, (nb, k)) ** 2
+    inv[1, 20:] = 1.0 / rng.uniform(8.0, 30.0, k - 20) ** 2
+    tab[..., 2] = inv[..., None]
+    tab[..., 4] = (inv * rng.uniform(0.5, 2.0, (nb, k)))[..., None]
+    tab[..., 3] = (0.2 * inv * rng.uniform(-1, 1, (nb, k)))[..., None]
+    tab[..., 5] = rng.uniform(0.02, 0.4, (nb, k, 1))
+    tab[1, 20:, :, 5] = 0.95
+    tab[..., 6:9] = rng.rand(nb, k, 1, 3)
+    d16c = torch.from_numpy(tab)
+    counts = torch.tensor([64, 50, 0, 31, 64, 64, 23, 45], dtype=torch.int32)
+    rows = tx4._quadrant_rows(d16c)
+    got = cs.x4f_cull_counts(torch, blend_mod, rows, counts)
+
+    owner, _ = quadrant_warp_of_pixel()
+    lx, ly = tx4._local_pixels("cpu", torch.float32)
+    terms = [blend_mod.pair_terms(rows[:, j], lx, ly) for j in range(k)]
+    alpha = torch.stack([t[5] for t in terms], 1).numpy()
+    ok = torch.stack([t[6] for t in terms], 1).numpy()
+    stop = stop_index(alpha, ok, counts.numpy())
+    x, y = lx[0].numpy(), ly[0].numpy()
+    want = dict.fromkeys(got, 0)
+    for j in range(int(counts.max())):
+        box = blend_mod.entry_cull_boxes(rows[:, j]).numpy()
+        for qi in range(4 * nb):
+            if j >= counts[qi]:
+                continue
+            for w in range(2):
+                mine = owner == w
+                want["entry_warp_pairs"] += 1
+                if (stop[qi, mine] < j).all():
+                    want["skipped_by_warp_stop"] += 1
+                elif (box[qi, 1] < x[mine].min() or box[qi, 0] > x[mine].max()
+                      or box[qi, 3] < y[mine].min()
+                      or box[qi, 2] > y[mine].max()):
+                    want["skipped_by_box"] += 1
+                else:
+                    continue
+                want["contributing_in_skipped"] += int(
+                    (ok[qi, j, mine] & (j <= stop[qi, mine])).sum())
+    assert got == want
+    assert want["contributing_in_skipped"] == 0
+    assert want["skipped_by_box"] > 0 and want["skipped_by_warp_stop"] > 0
+    # The stop is the warp's own: some warp stops before the other warp of
+    # its quadrant.
+    warp_stop = np.stack([stop[:, owner == w].max(-1) for w in range(2)], 1)
+    assert (warp_stop[:, 0] != warp_stop[:, 1]).any()
 
 
 def test_issue_bound():
