@@ -5,7 +5,8 @@ Host-side replacement for the reference's cv::imread + tensor_utils converters
 path, matches the reference's BGR->RGB handling), falls back to PIL; both are
 optional so the core framework stays importable without them.
 photo_slam_tpu/io/images.py, copied, plus codecs of the port's own for the
-machines that have neither: PNG (`read_png`, `write_png`, zlib and numpy:
+machines that have neither: PNG (`read_png`, `write_png` over
+`decode_png`, `encode_png`, zlib and numpy:
 the kinds the datasets use, 8-bit gray, 8-bit RGB, 16-bit gray, not
 interlaced) and baseline JPEG (io/jpeg.py, host C++ equal to cv2.imread),
 chosen by the file's signature; any other kind raises.
@@ -93,9 +94,17 @@ def read_png(path) -> np.ndarray:
     p = Path(path)
     if not p.is_file():
         raise FileNotFoundError(str(path))
-    data = p.read_bytes()
+    try:
+        return decode_png(p.read_bytes())
+    except ValueError as e:
+        raise ValueError(f"{path}: {e}") from None
+
+
+def decode_png(data: bytes) -> np.ndarray:
+    """PNG bytes as read_png returns a file's: [H, W] uint8 / uint16 (gray)
+    or [H, W, 3] uint8 (RGB). ValueError for another kind."""
     if not data.startswith(PNG_SIGNATURE):
-        raise ValueError(f"{path}: not a PNG file")
+        raise ValueError("not a PNG file")
     pos, header, idat = len(PNG_SIGNATURE), None, []
     while pos + 8 <= len(data):
         length, ctype = struct.unpack(">I4s", data[pos:pos + 8])
@@ -108,12 +117,12 @@ def read_png(path) -> np.ndarray:
         elif ctype == b"IEND":
             break
     if header is None:
-        raise ValueError(f"{path}: PNG without an IHDR chunk")
+        raise ValueError("PNG without an IHDR chunk")
     width, height, depth, color, _comp, _filt, interlace = header
     kind = _PNG_KINDS.get((color, depth))
     if kind is None or interlace:
         raise ValueError(
-            f"{path}: PNG kind {_COLOR_NAMES.get(color, color)} at "
+            f"PNG kind {_COLOR_NAMES.get(color, color)} at "
             f"{depth} bits{' interlaced' if interlace else ''} is not "
             f"supported (8-bit gray, 8-bit RGB, 16-bit gray only)")
     channels, dtype = kind
@@ -132,25 +141,33 @@ def _chunk(ctype: bytes, body: bytes) -> bytes:
 
 def write_png(path, img: np.ndarray) -> None:
     """Write [H, W] uint8 / uint16 (gray) or [H, W, 3] uint8 (RGB) as a
-    PNG file (no row filters, zlib level 6)."""
+    PNG file (encode_png at zlib level 6)."""
+    data = encode_png(img, level=6)
+    Path(path).parent.mkdir(parents=True, exist_ok=True)
+    Path(path).write_bytes(data)
+
+
+def encode_png(img: np.ndarray, level: int = 6) -> bytes:
+    """[H, W] uint8 / uint16 (gray) or [H, W, 3] uint8 (RGB) as PNG bytes:
+    no row filters, one IDAT chunk at zlib `level` (which changes the
+    size and the time, never the pixels)."""
     img = np.asarray(img)
     color = {2: 0, 3: 2}.get(img.ndim)
     if img.ndim == 3 and img.shape[2] != 3:
         color = None
     depth = {np.dtype(np.uint8): 8, np.dtype(np.uint16): 16}.get(img.dtype)
     if color is None or depth is None or (color, depth) not in _PNG_KINDS:
-        raise ValueError(f"write_png: {img.dtype} {img.shape} is not 8-bit "
+        raise ValueError(f"encode_png: {img.dtype} {img.shape} is not 8-bit "
                          f"gray, 8-bit RGB or 16-bit gray")
     h, w = img.shape[:2]
     samples = img.astype(">u2") if depth == 16 else img
     rows = np.ascontiguousarray(samples).view(np.uint8).reshape(h, -1)
     raw = np.concatenate([np.zeros((h, 1), np.uint8), rows], 1).tobytes()
-    Path(path).parent.mkdir(parents=True, exist_ok=True)
-    Path(path).write_bytes(
-        PNG_SIGNATURE
-        + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, color, 0, 0,
-                                      0))
-        + _chunk(b"IDAT", zlib.compress(raw, 6)) + _chunk(b"IEND", b""))
+    return (PNG_SIGNATURE
+            + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, color, 0,
+                                          0, 0))
+            + _chunk(b"IDAT", zlib.compress(raw, level))
+            + _chunk(b"IEND", b""))
 
 
 def _read_own(path) -> np.ndarray:

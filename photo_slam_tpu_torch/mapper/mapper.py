@@ -20,9 +20,17 @@ keypoints, depth and image), so its small tensor ops run on the CPU and
 only the harvested points go to the device (trainer.increase_pcd). Stereo
 depth comes from the port's semi-global matching on the mapper's device
 (ops/stereo.py, the sgm kernel on a card), OpenCV's StereoSGBM's function.
+
+The map is written in place (Adam) and swapped (capacity growth, the
+mapping ops), so unlike the JAX package's immutable state it needs the
+reference's render mutex (mutex_render_, src/gaussian_mapper.cpp:1549):
+`render_lock` is held around every write of the map (the trainer's state
+lock) and around each mapping op, and render_from_pose holds it while it
+reads the map and enqueues its render on the mapper's stream.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import time
 from enum import Enum
@@ -49,6 +57,7 @@ from photo_slam_tpu_torch.ops.render import (RenderSettings, principal_for,
 from photo_slam_tpu_torch.utils.math import (quat_to_rotmat,
                                              rotmat_to_quat_numpy,
                                              se3_inverse, se3_matrix)
+from photo_slam_tpu_torch.utils.profiling import Profiler
 
 
 class SensorType(Enum):
@@ -76,6 +85,15 @@ class GaussianMapper:
         self.trainer = GaussianTrainer(cfg, self.scene, seed=seed,
                                        device=self.device)
         self.trainer.online_lr = True
+        # The render mutex (the trainer's state lock) and the stream the
+        # mapper enqueues on, where the viewer's renders go too; the
+        # viewer copies its images to the host on a stream of its own.
+        self.render_lock = self.trainer.state_lock
+        self.profiler = self.trainer.profiler
+        self._stream = self._copy_stream = None
+        if self.device.type == "cuda":
+            self._stream = torch.cuda.current_stream(self.device)
+            self._copy_stream = torch.cuda.Stream(self.device)
         self.queue = MappingOpQueue()
         self.result_dir = Path(result_dir) if result_dir else None
         self.initial_mapped = False
@@ -109,14 +127,15 @@ class GaussianMapper:
     def combine_mapping_operations(self) -> None:
         while self.queue.has():
             op = self.queue.get_and_pop()
-            if op.kind == OprType.LOCAL_MAPPING_BA:
-                self._apply_local_ba(op)
-            elif op.kind == OprType.LOOP_CLOSING_BA:
-                self._apply_loop_closing(op)
-            elif op.kind == OprType.SCALE_REFINEMENT:
-                self._apply_scale_refinement(op)
-            else:
-                raise ValueError(f"unknown op {op.kind}")
+            with self.render_lock:
+                if op.kind == OprType.LOCAL_MAPPING_BA:
+                    self._apply_local_ba(op)
+                elif op.kind == OprType.LOOP_CLOSING_BA:
+                    self._apply_loop_closing(op)
+                elif op.kind == OprType.SCALE_REFINEMENT:
+                    self._apply_scale_refinement(op)
+                else:
+                    raise ValueError(f"unknown op {op.kind}")
 
     def _apply_local_ba(self, op: MappingOperation) -> None:
         for kf_data in op.keyframes:
@@ -374,12 +393,8 @@ class GaussianMapper:
             batch: int = 1) -> None:
         """The 3-phase online loop. `is_tracker_done` polls tracker shutdown;
         `live_kf_ids` (optional) gives the current keyframe set for culling.
-        The port trains one keyframe per step: the multi-view batched step
-        (batch > 1) is not ported yet."""
-        if batch != 1:
-            raise NotImplementedError(
-                "GaussianMapper.run(batch>1): the multi-view batched train "
-                "step waits for the multi-GPU item of ROADMAP Queue 1")
+        `batch > 1` trains `batch` keyframes, sampled one by one, per
+        optimization step (trainer.train_iteration_batched)."""
         o = self.cfg.opt
         max_iter = max_iterations or o.max_num_iterations
         # An opacity reset needs recovery iterations before the run's final
@@ -389,10 +404,20 @@ class GaussianMapper:
         reset_margin = max(200, (o.opacity_reset_interval or 0) // 10)
 
         def train_once():
-            self.trainer.train_iteration(
-                fetch_metrics=self.trainer.iteration % 10 == 0,
-                allow_opacity_reset=(self.trainer.iteration + reset_margin
-                                     < max_iter))
+            fetch = self.trainer.iteration % 10 == 0
+            can_reset = self.trainer.iteration + reset_margin < max_iter
+            if batch > 1:
+                kfs = [kf for kf in (
+                    self.trainer.sampler.sample_sliding_window(
+                        self.scene.keyframes) for _ in range(batch))
+                    if kf is not None]
+                if kfs:
+                    self.trainer.train_iteration_batched(
+                        kfs, fetch_metrics=fetch,
+                        allow_opacity_reset=can_reset)
+                    return
+            self.trainer.train_iteration(fetch_metrics=fetch,
+                                         allow_opacity_reset=can_reset)
 
         # Phase 1: wait for initial conditions.
         while not self.stopped and not self.initial_mapped:
@@ -440,11 +465,21 @@ class GaussianMapper:
     RENDER_LADDER_H = 128
 
     def render_from_pose(self, quat_wxyz, trans, width: int, height: int,
-                         camera_id: int = 0) -> np.ndarray:
+                         camera_id: int = 0,
+                         profiler: Optional[Profiler] = None) -> np.ndarray:
         """Viewer render service (reference:
         src/gaussian_mapper.cpp:1521-1569): renders the current map on its
         device through the kernel path; returns a [3, height, width] host
-        array."""
+        array.
+
+        It holds render_lock while it reads the map and enqueues the render
+        on the mapper's stream, so the render sees no half-written map;
+        the wait for the device and the copy to the host come after the
+        lock is released (stream order keeps the render ahead of the
+        mapper's later writes). `profiler` times the stages as spans:
+        viewer.lock_wait, viewer.render (enqueue to the device's finish)
+        and viewer.d2h."""
+        prof = profiler or Profiler(enabled=False)
         cam = self.scene.cameras[camera_id]
         q = np.asarray(quat_wxyz, np.float64)
         R = quat_to_rotmat(torch.tensor(q / np.linalg.norm(q),
@@ -455,12 +490,6 @@ class GaussianMapper:
         # Same focal length, extended FoV for the padded size.
         tanx2 = float(np.tan(cam.fovx / 2)) * w2 / width
         tany2 = float(np.tan(cam.fovy / 2)) * h2 / height
-        mats = build_camera_matrices(R, np.asarray(trans, np.float64),
-                                     self.cfg.mapper.z_near,
-                                     self.cfg.mapper.z_far,
-                                     2.0 * float(np.arctan(tanx2)),
-                                     2.0 * float(np.arctan(tany2)),
-                                     device=self.device)
         k_dup, per_tile = self.cfg.renderer.caps_for_mode("pallas")
         # Off-center principal points ride through the ladder exactly: the
         # padded render keeps the camera's (cx, cy) shifted by the integer
@@ -468,20 +497,42 @@ class GaussianMapper:
         x0 = (w2 - width) // 2
         y0 = (h2 - height) // 2
         pp = principal_for(cam, width, height)
-        settings = RenderSettings(
-            width=w2, height=h2, tan_fovx=tanx2, tan_fovy=tany2,
-            sh_degree=self.trainer.default_sh,
-            max_tiles_per_gaussian=k_dup, max_per_tile=per_tile,
-            principal=None if pp is None else (pp[0] + x0, pp[1] + y0),
-            mode="pallas")
-        state = self.trainer.state
-        scales, quats, opac = gm.activated(state.params)
-        with torch.no_grad():
-            res = render(state.params.xyz, scales, quats, opac, mats,
-                         settings, self.trainer.bg_color,
-                         shs=gm.sh_features(state.params),
-                         live_mask=state.live)
-        img = res.image[:, y0:y0 + height, x0:x0 + width].cpu().numpy()
+        on_stream = (torch.cuda.stream(self._stream) if self._stream
+                     is not None else contextlib.nullcontext())
+        with on_stream, torch.no_grad():
+            mats = build_camera_matrices(R, np.asarray(trans, np.float64),
+                                         self.cfg.mapper.z_near,
+                                         self.cfg.mapper.z_far,
+                                         2.0 * float(np.arctan(tanx2)),
+                                         2.0 * float(np.arctan(tany2)),
+                                         device=self.device)
+            with prof.locked("viewer.lock_wait", self.render_lock):
+                t0 = time.perf_counter()
+                settings = RenderSettings(
+                    width=w2, height=h2, tan_fovx=tanx2, tan_fovy=tany2,
+                    sh_degree=self.trainer.default_sh,
+                    max_tiles_per_gaussian=k_dup, max_per_tile=per_tile,
+                    principal=(None if pp is None
+                               else (pp[0] + x0, pp[1] + y0)),
+                    mode="pallas")
+                state = self.trainer.state
+                scales, quats, opac = gm.activated(state.params)
+                res = render(state.params.xyz, scales, quats, opac, mats,
+                             settings, self.trainer.bg_color,
+                             shs=gm.sh_features(state.params),
+                             live_mask=state.live)
+                img = res.image[:, y0:y0 + height, x0:x0 + width]
+                done = None
+                if self._stream is not None:
+                    done = torch.cuda.Event()
+                    done.record(self._stream)
+        if done is not None:
+            done.synchronize()
+        prof.record("viewer.render", time.perf_counter() - t0)
+        with prof.span("viewer.d2h"), (
+                torch.cuda.stream(self._copy_stream) if self._copy_stream
+                is not None else contextlib.nullcontext()):
+            img = img.cpu().numpy()
         # Mask out invalid undistortion border pixels, like the reference's
         # viewer path (src/gaussian_mapper.cpp:1563-1568).
         if cam.has_distortion:

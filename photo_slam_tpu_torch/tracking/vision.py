@@ -971,8 +971,7 @@ def _smooth(img: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def orb_detect_and_compute(gray, nfeatures: int = 500,
-                           device="cpu") -> OrbFeatures:
+def orb_detect_and_compute(gray, nfeatures: int, device) -> OrbFeatures:
     """ORB keypoints and descriptors of an 8-bit gray image [H, W] (numpy
     or tensor), computed with torch on `device`, following
     cv2.ORB_create(nfeatures)'s defaults: 8 levels at scale 1.2 with the

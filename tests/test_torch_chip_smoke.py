@@ -13,7 +13,9 @@ checks X2_SASS, on a listing in cuobjdump's layout; and
 the online phase's helpers: its in-memory sequence (tools/synth_replica.py)
 and the correction ops it makes and its CPU twin; and the euroc phase's:
 the gravity angle, the share of disparities near the truth, the sgm
-kernel's bound and its row of the `kernels` line."""
+kernel's bound and its row of the `kernels` line; and the viewer and
+batched phases': the stages of a /render request, a served PNG against a
+render, the /render query and the batched step's launch check."""
 import numpy as np
 import pytest
 import torch
@@ -834,3 +836,74 @@ def test_sgm_bound_and_row():
         assert row[key] and " ms" not in row[key]
     assert cs.EUROC_ATE_M == 0.05 and cs.EUROC_FRAMES == 120
     assert cs.EUROC_ITERS == cs.ONLINE_ITERS == 1000
+
+
+# ---------------------------------------------------------------------------
+# The viewer and batched phases' helpers: the split of a /render request
+# into its stages, the served PNG against render_from_pose's image, and the
+# launches of the batched step.
+# ---------------------------------------------------------------------------
+
+def test_request_stages():
+    from photo_slam_tpu_torch.utils.profiling import Profiler
+
+    prof = Profiler()
+    for dt in (0.001, 0.003):
+        for i, stage in enumerate(cs.VIEWER_STAGES):
+            prof.record(stage, dt * (i + 1))
+    got = cs.request_stages(prof.summary(), 2)
+    assert list(got) == list(cs.VIEWER_STAGES)
+    for i, stage in enumerate(cs.VIEWER_STAGES):
+        assert got[stage] == pytest.approx(2.0 * (i + 1))
+    # A request counted in one stage and not another, or a stage missing.
+    with pytest.raises(AssertionError, match="lock_wait timed 2 times"):
+        cs.request_stages(prof.summary(), 3)
+    prof.record("viewer.d2h", 0.001)
+    with pytest.raises(AssertionError, match="viewer.d2h timed 3"):
+        cs.request_stages(prof.summary(), 2)
+    del prof.spans["viewer.lock_wait"]
+    with pytest.raises(AssertionError, match="lock_wait timed 0"):
+        cs.request_stages(prof.summary(), 2)
+
+
+def test_png_levels_apart():
+    """The served PNG (the viewer's own encoder) against a render: 0 levels
+    for the same image, 1 for a pixel one level off, None for another
+    size."""
+    from photo_slam_tpu_torch.io.images import decode_png
+    from photo_slam_tpu_torch.viewer import server
+
+    img = np.random.RandomState(5).rand(3, 20, 30).astype(np.float32)
+    img[0, 0, 0], img[1, 2, 3] = -0.5, 1.5   # clipped as the viewer clips
+    body = server._to_png(img)
+    np.testing.assert_array_equal(decode_png(body), cs.viewer_pixels(img))
+    assert cs.png_levels_apart(decode_png, body, img) == 0
+    off = img.copy()
+    off[2, 5, 7] = np.clip(off[2, 5, 7] + 1.0 / 255.0, 0, 1) if (
+        off[2, 5, 7] < 0.99) else off[2, 5, 7] - 1.0 / 255.0
+    assert cs.png_levels_apart(decode_png, body, off) == 1
+    assert cs.png_levels_apart(decode_png, body, img[:, :, :29]) is None
+
+
+def test_render_path_keeps_every_bit():
+    import urllib.parse
+
+    q = (0.9987654321012345, -0.01, 0.0493, 1e-17)
+    t = (0.1 + 0.2, -3.0, 1 / 3)
+    qs = urllib.parse.parse_qs(urllib.parse.urlparse(
+        cs.render_path(q, t, 1000, 600)).query)
+    assert [float(qs[k][0]) for k in ("qw", "qx", "qy", "qz")] == list(q)
+    assert [float(qs[k][0]) for k in ("tx", "ty", "tz")] == list(t)
+    assert (int(qs["w"][0]), int(qs["h"][0])) == (1000, 600)
+
+
+def test_check_batched_launches():
+    ok = {"blend_fwd": 92, "blend_bwd": 92, "window_gather": 92}
+    cs.check_batched_launches(ok, 23, 4)
+    with pytest.raises(AssertionError, match="blend_bwd launched 91"):
+        cs.check_batched_launches({**ok, "blend_bwd": 91}, 23, 4)
+    with pytest.raises(AssertionError, match="window_gather launched 23"):
+        cs.check_batched_launches({**ok, "window_gather": 23}, 23, 4)
+    with pytest.raises(AssertionError, match="blend_fwd launched None"):
+        cs.check_batched_launches({"blend_bwd": 92, "window_gather": 92},
+                                  23, 4)

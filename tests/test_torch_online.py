@@ -2,8 +2,8 @@
 package's (JAX in "tiled" mode, its CPU default: f32 like the port's
 kernel path) through run_online with the GT frontend, threaded=False and
 densify off, on the same frames; the online_slam CLI of both packages on
-the same Replica-layout sequence; and the port's own refusals (batch > 1,
-the feature frontends, the viewer). The port-only scenarios of
+the same Replica-layout sequence; and what the CLI now accepts (batch > 1,
+the viewer, the stereo sensor). The port-only scenarios of
 tests/test_mapper.py are in test_torch_mapper.py.
 
 Tolerances: after 10 iterations, 99 % of each parameter group's live
@@ -230,21 +230,21 @@ def test_online_slam_cli_matches_jax(tmp_path):
 
 
 def test_cli_refuses_what_is_not_ported(tmp_path):
-    """The live viewer and batched training still wait for their slices
-    (ROADMAP Queue 1); the stereo sensor, --imu and euroc_stereo do not."""
+    """Nothing of the CLI's is refused any more: the live viewer and
+    batched training are ported (tests/test_torch_viewer.py,
+    test_torch_batched_training.py, test_torch_apps.py), and so are the
+    stereo sensor, --imu and euroc_stereo."""
     seq = Sequence(camera(), [])
-    with pytest.raises(NotImplementedError, match="Queue 1"):
-        tonline.run_online(seq, tmapper.SensorType.RGBD, tconfig.Config(),
-                           tmp_path, device="cpu", viewer=True)
     mapper = tmapper.GaussianMapper(tconfig.Config(),
                                     tmapper.SensorType.RGBD, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1"):
-        mapper.run(is_tracker_done=lambda: True, batch=2)
-    # Accepted now: an empty stereo sequence reaches the run's own check
-    # that tracking produced keyframes.
+    mapper.run(is_tracker_done=lambda: True, batch=2)
+    assert not mapper.initial_mapped and mapper.trainer.iteration == 0
+    # An empty stereo sequence, with the viewer on, reaches the run's own
+    # check that tracking produced keyframes.
     with pytest.raises(SystemExit, match="no keyframes"):
         tonline.run_online(seq, tmapper.SensorType.STEREO, tconfig.Config(),
-                           tmp_path, frontend="slam", device="cpu")
+                           tmp_path, frontend="slam", device="cpu",
+                           viewer=True, viewer_port=0)
     # euroc_stereo parses and loads (a missing sequence is the loader's
     # FileNotFoundError, not a refusal).
     with pytest.raises(FileNotFoundError, match="EuRoC"):
