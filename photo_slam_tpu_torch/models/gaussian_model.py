@@ -59,6 +59,12 @@ def num_live(state: GaussianState) -> torch.Tensor:
     return state.live.sum(dtype=torch.int32)
 
 
+def clone_state(state: GaussianState) -> GaussianState:
+    """A copy of every tensor of the state (Adam writes a map in place)."""
+    return GaussianState(GaussianParams(*(x.clone() for x in state.params)),
+                         *(x.clone() for x in state[1:]))
+
+
 def activated(params: GaussianParams):
     """(scales, unit quats, opacities[N]): the activations the renderer
     consumes (reference: src/gaussian_model.cpp:48-71)."""

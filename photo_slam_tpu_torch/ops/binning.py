@@ -153,12 +153,18 @@ def bin_gaussians(
     max_tiles_per_gaussian: int = 64,
     max_per_tile: int = 512,
     extents=None,
+    key_tiles: int | None = None,
 ) -> TileBinning:
     """Build depth-ordered per-tile lists; all shapes static.
 
     Rects larger than `max_tiles_per_gaussian` tiles keep their tile of the
     projected mean and are trimmed symmetrically around it. `extents` [N, 2]
-    switches to tight per-axis footprint rects.
+    switches to tight per-axis footprint rects. `key_tiles` sizes the
+    packed keys' depth code for that many tiles instead of this grid's: a
+    band of a larger frame passes the frame's tile count, so that its
+    depths tie exactly where the frame's do (and then sort as the frame's
+    wherever the sort keeps tied keys in entry order, as the card's radix
+    sort does at the main path's sizes).
     """
     dev = means2d.device
     n = means2d.shape[0]
@@ -166,7 +172,8 @@ def bin_gaussians(
     num_tiles = gx * gy
     k_dup = max_tiles_per_gaussian
     # Bits available for the in-key depth code (tile ids occupy the top).
-    depth_bits = 31 - max(1, (num_tiles + 1)).bit_length()
+    depth_bits = 31 - max(1, (max(num_tiles, key_tiles or 0) + 1)
+                          ).bit_length()
     if depth_bits < 12:
         raise ValueError(f"too many tiles ({num_tiles}) for packed keys")
 

@@ -81,9 +81,11 @@ def render_pallas(
     overflow_passes: int = 1,
     overflow_capacity: int = 512,
     overflow_compact: int = 128,
+    key_tiles: int | None = None,
 ):
     """Bin at 32px tiles, pack the [N, 16] entries, run the blend kernel,
-    assemble the image. Returns (RenderOutput, TileBinning).
+    assemble the image. Returns (RenderOutput, TileBinning). `key_tiles`
+    goes to bin_gaussians (a band of a larger frame).
 
     overflow_passes > 1 runs continuation passes over the depth-tail entries
     of tiles deeper than max_per_tile. Compositing is homogeneous in the
@@ -104,6 +106,7 @@ def render_pallas(
         max_per_tile=max_per_tile,
         extents=tight_extents(prep.conics.detach(), opacities.detach(),
                               prep.radii),
+        key_tiles=key_tiles,
     )
 
     feat = pack_features(prep, opacities)

@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from photo_slam_tpu_torch.models import gaussian_model as gm
+from photo_slam_tpu_torch.models import optimizer as optim
 from photo_slam_tpu_torch.ops.binning import (TileBinning, bin_gaussians,
                                               tile_grid)
 from photo_slam_tpu_torch.ops.camera_math import build_camera_matrices
@@ -150,6 +151,43 @@ def psnr_max_diff(a: torch.Tensor, b: torch.Tensor) -> tuple[float, float]:
     mse = float(((a - b) ** 2).mean())
     return (10 * float(np.log10(1.0 / max(mse, 1e-12))),
             float((a - b).abs().max()))
+
+
+def step_outcome(opt, params, params0, xyz_grad_accum):
+    """What one step from a fresh Adam state did, for twin_errors:
+    (gradients, read from Adam's first moment m = (1 - beta1) g, updates
+    params - params0, xyz_grad_accum)."""
+    return ([m / (1.0 - optim.BETA1) for m in opt.m],
+            [p - q for p, q in zip(params, params0)], xyz_grad_accum)
+
+
+def twin_errors(step, ref, rtol: float) -> dict:
+    """One step from a fresh Adam state against its twin, each a
+    step_outcome: per parameter group (gradient error / max, update error
+    / max, max |gradient|), and "xyz_grad_accum": (its error / max,). The
+    first Adam step moves an element by lr g / (|g| + eps): where |g| is
+    near the gradient tolerance, the sign of a sum that the twins round
+    differently decides +-lr, and eps weighs in where |g| is tiny, so
+    updates are compared where |g| is above 10 rtol of its group's max."""
+    (grads, upds, acc), (ref_grads, ref_upds, ref_acc) = step, ref
+    out = {}
+    for name, g, rg, u, ru in zip(gm.GaussianParams._fields, grads,
+                                  ref_grads, upds, ref_upds):
+        if rg.numel() == 0:   # features_rest at SH degree 0
+            continue
+        scale = float(rg.abs().max())
+        sure = rg.abs() > 10 * rtol * scale
+        out[name] = (float((g - rg).abs().max()) / max(scale, 1e-30),
+                     float(((u - ru).abs() * sure).max())
+                     / max(float(ru.abs().max()), 1e-30), scale)
+    out["xyz_grad_accum"] = (float((acc - ref_acc).abs().max())
+                             / max(float(ref_acc.abs().max()), 1e-30),)
+    return out
+
+
+def spread(errors: dict) -> float:
+    """The largest error / max of twin_errors' result."""
+    return max(max(e[:2]) for e in errors.values())
 
 
 def time_ms(fn, reps: int, device) -> float:

@@ -123,6 +123,9 @@ def test_port_imports_with_jax_blocked():
         "import photo_slam_tpu_torch.utils.profiling\n"
         "import photo_slam_tpu_torch.viewer.server\n"
         "import photo_slam_tpu_torch.parallel.sharding\n"
+        "import photo_slam_tpu_torch.parallel.launch\n"
+        "import photo_slam_tpu_torch.parallel.collectives\n"
+        "import photo_slam_tpu_torch.parallel.dryrun\n"
         "import photo_slam_tpu_torch.apps.realsense_rgbd\n"
         "assert not any(m == 'jax' or m.startswith('jax.') for m, v in\n"
         "               sys.modules.items() if v is not None)\n"

@@ -15,7 +15,10 @@ and the correction ops it makes and its CPU twin; and the euroc phase's:
 the gravity angle, the share of disparities near the truth, the sgm
 kernel's bound and its row of the `kernels` line; and the viewer and
 batched phases': the stages of a /render request, a served PNG against a
-render, the /render query and the batched step's launch check."""
+render, the /render query and the batched step's launch check; and the
+sharded phase's: the collective path, the ranks' launches summed, the
+bytes of each collective, the twin checks and the caps that do not
+bind."""
 import numpy as np
 import pytest
 import torch
@@ -907,3 +910,107 @@ def test_check_batched_launches():
     with pytest.raises(AssertionError, match="blend_fwd launched None"):
         cs.check_batched_launches({"blend_bwd": 92, "window_gather": 92},
                                   23, 4)
+
+
+def test_collective_path():
+    assert cs.collective_path("nccl", "cuda:0") == "nccl, card to card"
+    assert "staged through host memory by gloo" in cs.collective_path(
+        "gloo", "cuda:0")
+    assert cs.collective_path("gloo", "cpu") == "gloo on host tensors"
+
+
+def test_sum_launches_over_the_ranks():
+    ranks = [{"blend_fwd": 30, "blend_bwd": 12, "window_gather": 31},
+             {"blend_fwd": 30, "blend_bwd": 12, "window_gather": 31},
+             {"blend_fwd": 5, "blend_bwd": 2, "window_gather": 5}]
+    assert cs.sum_launches(ranks) == {"blend_fwd": 65, "blend_bwd": 26,
+                                      "window_gather": 67}
+
+
+def test_sharded_bytes_by_hand():
+    """The room over 2 ranks: 150,000 rows a rank, bands of 352 px."""
+    b = cs.sharded_bytes(150_000, 2, 352, 1200)
+    bands = 2 * 3 * 352 * 1200 * 4
+    assert b["band_render"] == {"all_gather": bands}
+    assert b["gp_step"] == {"all_gather": 7_200_000 + bands,
+                            "reduce_scatter": 6_000_000, "all_reduce": 12}
+    # 59 parameters + 2 view-space gradient values + the loss, then radii
+    # and visibility.
+    assert cs.sharded_bytes(300_000, 2, 352, 1200)["view_step"] == {
+        "all_reduce": 4 * (1 + 300_000 * 61) + 8 * 300_000}
+
+
+def test_check_twins():
+    cs.check_twins("step", {"xyz": (1e-5, 0.0, 2.0),
+                            "xyz_grad_accum": (5e-5,)}, 1e-4)
+    with pytest.raises(AssertionError, match="xyz: update error"):
+        cs.check_twins("step", {"xyz": (0.0, 2e-4, 1.0)}, 1e-4)
+    with pytest.raises(AssertionError, match="xyz_grad_accum: error"):
+        cs.check_twins("NCCL step", {"xyz_grad_accum": (1e-9,)}, 0.0)
+
+
+def test_twin_errors():
+    """bench_room.twin_errors on a fresh Adam step (the yardstick of
+    chip_smoke's compare_steps and of sharded_room): zero against itself;
+    a gradient off by d reads as d / max, and an update that the sign of a
+    tiny gradient flips is not compared."""
+    from photo_slam_tpu_torch.models import gaussian_model as tgm
+    from photo_slam_tpu_torch.models import optimizer as toptim
+    from photo_slam_tpu_torch.tools import sharded_room as sr
+
+    cap = 8
+    p0 = tgm.empty_state(cap, 0, device="cpu").params
+    g = tgm.GaussianParams(*(torch.linspace(-1, 1, x.numel()).reshape(
+        x.shape) for x in p0))
+    lrs = toptim.LearningRates.create(*sr.LRS)
+    acc = torch.arange(cap, dtype=torch.float32)
+
+    def step(grads):
+        params = tgm.GaussianParams(*(x.clone() for x in p0))
+        p, o = toptim.adam_step(params, grads, toptim.init_adam(params), lrs,
+                                torch.ones(cap, dtype=torch.bool))
+        return bench_room.step_outcome(o, p, p0, acc)
+
+    def errors(a, b):
+        return bench_room.twin_errors(a, b, sr.TWIN_RTOL)
+
+    ref = step(g)
+    errs = errors(ref, ref)
+    assert all(e[:2] == (0.0, 0.0) for k, e in errs.items()
+               if k != "xyz_grad_accum")
+    assert errs["xyz_grad_accum"] == (0.0,)
+    assert bench_room.spread(errs) == 0.0
+    off = g.xyz.clone()
+    off[0, 0] += 0.01
+    errs = errors(step(g._replace(xyz=off)), ref)
+    assert errs["xyz"][0] == pytest.approx(0.01, rel=1e-4)
+    assert bench_room.spread(errs) == pytest.approx(0.01, rel=1e-4)
+    tiny = g.quats.clone()
+    tiny[0, 0] = 1e-9   # the reference's gradient is -1e-9 there
+    flipped = g._replace(quats=torch.where(tiny == 1e-9, -1e-9, tiny))
+    assert errors(step(g._replace(quats=tiny)), step(flipped))["quats"][1] \
+        == 0.0
+    more = acc.clone()
+    more[1] += 0.7   # of a max of 7
+    assert errors((*ref[:2], more), ref)["xyz_grad_accum"][0] == \
+        pytest.approx(0.1)
+
+
+def test_caps_that_do_not_bind():
+    """On the dry run's scene at 128x96: at the caps no Gaussian is
+    clipped and no tile overflows; one tile fewer a Gaussian clips."""
+    from photo_slam_tpu_torch.parallel import dryrun
+    from photo_slam_tpu_torch.tools import sharded_room as sr
+
+    state = dryrun.make_scene(n=3000, device="cpu")[0]
+    view = bench_room.map_view(state, device="cpu", width=128, height=96)
+    k, mpt = sr.caps_that_do_not_bind(view.prep, view.extents, 128, 96)
+    assert mpt % 256 == 0
+
+    def bins(k_dup, max_per_tile):
+        return bench_room.bin_view(view, 32, k_dup, max_per_tile)
+
+    b = bins(k, mpt)
+    assert int(b.num_clipped) == 0 and int(b.num_overflow) == 0
+    assert int(b.raw_counts.max()) > mpt - 256
+    assert int(bins(k - 1, mpt).num_clipped) > 0
