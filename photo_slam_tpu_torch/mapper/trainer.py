@@ -48,6 +48,55 @@ from photo_slam_tpu_torch.parallel.sharding import train_step_batched
 from photo_slam_tpu_torch.utils.profiling import Profiler
 
 
+STATE_FIELDS = ("live", "max_radii2d", "xyz_grad_accum", "denom",
+                "exist_since_iter")
+
+
+def save_state_npz(path, state: gm.GaussianState, opt_state: optim.AdamState,
+                   meta, meta_f, compressed: bool = True, **extra) -> None:
+    """A map and its Adam state under the JAX package's checkpoint keys
+    (p_*, s_*, m_*, v_*), with `meta` [iteration, SH degree, Adam step] and
+    `meta_f` [ema loss, spatial LR scale, initial position LR], so that
+    either package's GaussianTrainer.load_checkpoint loads it; `extra`
+    arrays are stored beside under their own names. Written to a
+    temporary name first and renamed into place."""
+    def host(x):
+        return x.detach().cpu().numpy()
+
+    payload = {}
+    for prefix, group in (("p", state.params), ("m", opt_state.m),
+                          ("v", opt_state.v)):
+        payload.update({f"{prefix}_{k}": host(v)
+                        for k, v in group._asdict().items()})
+    payload.update({f"s_{k}": host(getattr(state, k)) for k in STATE_FIELDS})
+    payload["meta"] = np.array(meta)
+    payload["meta_f"] = np.array(meta_f)
+    payload.update(extra)
+    path = Path(path)
+    if path.suffix != ".npz":   # where numpy would write it
+        path = path.with_name(path.name + ".npz")
+    path.parent.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_name("tmp_" + path.name)
+    (np.savez_compressed if compressed else np.savez)(tmp, **payload)
+    tmp.replace(path)
+
+
+def load_state_npz(path, device):
+    """(state, opt_state, the npz file) of a checkpoint save_state_npz (or
+    the JAX package) wrote, on `device`."""
+    data = np.load(path)
+    fields = gm.GaussianParams._fields
+    state = gm.state_from_numpy(
+        {k: data[f"p_{k}"] for k in fields}, data["s_live"], device=device,
+        max_radii2d=data["s_max_radii2d"],
+        xyz_grad_accum=data["s_xyz_grad_accum"], denom=data["s_denom"],
+        exist_since_iter=data["s_exist_since_iter"])
+    opt_state = optim.adam_from_numpy(
+        {k: data[f"m_{k}"] for k in fields},
+        {k: data[f"v_{k}"] for k in fields}, data["meta"][2], device=device)
+    return state, opt_state, data
+
+
 def train_step(
     state: gm.GaussianState,
     opt_state: optim.AdamState,
@@ -487,38 +536,14 @@ class GaussianTrainer:
         """Full training state (map, optimizer moments and step, schedule
         state) for mid-training resume, under the JAX package's .npz keys so
         that either package loads the other's checkpoints."""
-        def host(x):
-            return x.detach().cpu().numpy()
-
-        payload = {}
-        for name, arr in self.state.params._asdict().items():
-            payload[f"p_{name}"] = host(arr)
-        for name in ("live", "max_radii2d", "xyz_grad_accum", "denom",
-                     "exist_since_iter"):
-            payload[f"s_{name}"] = host(getattr(self.state, name))
-        for name, arr in self.opt_state.m._asdict().items():
-            payload[f"m_{name}"] = host(arr)
-        for name, arr in self.opt_state.v._asdict().items():
-            payload[f"v_{name}"] = host(arr)
-        payload["meta"] = np.array([
-            self.iteration, self.default_sh, int(self.opt_state.step)])
-        payload["meta_f"] = np.array([
-            self.ema_loss, self.spatial_lr_scale, self.position_lr_init_live])
-        Path(path).parent.mkdir(parents=True, exist_ok=True)
-        np.savez_compressed(path, **payload)
+        save_state_npz(path, self.state, self.opt_state,
+                       meta=[self.iteration, self.default_sh,
+                             int(self.opt_state.step)],
+                       meta_f=[self.ema_loss, self.spatial_lr_scale,
+                               self.position_lr_init_live])
 
     def load_checkpoint(self, path) -> None:
-        data = np.load(path)
-        fields = gm.GaussianParams._fields
-        self.state = gm.state_from_numpy(
-            {k: data[f"p_{k}"] for k in fields}, data["s_live"],
-            device=self.device, max_radii2d=data["s_max_radii2d"],
-            xyz_grad_accum=data["s_xyz_grad_accum"], denom=data["s_denom"],
-            exist_since_iter=data["s_exist_since_iter"])
-        self.opt_state = optim.adam_from_numpy(
-            {k: data[f"m_{k}"] for k in fields},
-            {k: data[f"v_{k}"] for k in fields}, data["meta"][2],
-            device=self.device)
+        self.state, self.opt_state, data = load_state_npz(path, self.device)
         self.iteration = int(data["meta"][0])
         self.default_sh = int(data["meta"][1])
         self.ema_loss = float(data["meta_f"][0])

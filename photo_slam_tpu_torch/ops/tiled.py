@@ -3,9 +3,11 @@
 Counterpart of photo_slam_tpu/ops/tiled.py::render_pallas, differentiable
 with respect to the preprocessed Gaussians (binning sees detached inputs,
 as JAX's stop_gradient does). `entry_gather` is the row gather
-feat[max(id, 0) // k_dup]; its transpose (`entry_gather_transpose`) adds
-each [T, K, 16] gradient row back into its Gaussian with an f32
-`index_add_`, where the JAX package routes bf16 rows through sorts
+feat[max(id, 0) // k_dup]; its transpose (`entry_gather_transpose`) sums
+each [T, K, 16] gradient row back into its Gaussian in f32: a stable sort
+of the table positions by Gaussian (`entry_order`), then the segmented sum
+`entry_sum` (csrc/entry_sum.cu, no atomics), so the sum is the same on
+every run. The JAX package routes bf16 rows through sorts
 (photo_slam_tpu/ops/tiled.py:97-218, 245-286, a TPU workaround). Only the
 lanes 0-8 carry gradient.
 """
@@ -13,6 +15,7 @@ from __future__ import annotations
 
 import torch
 
+from photo_slam_tpu_torch import kernels
 from photo_slam_tpu_torch.ops.binning import (bin_gaussians, tile_grid,
                                               window_gather, window_lists)
 from photo_slam_tpu_torch.ops.blend import FEAT, TILE_PS, pallas_blend
@@ -23,18 +26,87 @@ from photo_slam_tpu_torch.ops.preprocess import Preprocessed, tight_extents
 GRAD_LANES = 9  # packed lanes that carry gradient (ops/blend.py layout)
 
 
+def entry_order(entry_lists: torch.Tensor, k_dup: int,
+                n: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The table positions of entry ids `entry_lists` [...] sorted by
+    Gaussian (id // k_dup) with a stable sort, invalid ids (< 0) last:
+    (order [P] int32 positions into the flattened table, bounds [n + 1]
+    int32), Gaussian i's positions in table order at order[bounds[i] :
+    bounds[i + 1]]. Plain torch on both devices (the JAX package's sorts
+    are XLA); a stable sort has one result, so the order is the same on
+    every run."""
+    ids = entry_lists.reshape(-1)
+    keys = torch.where(ids >= 0, torch.div(ids, k_dup, rounding_mode="floor"),
+                       n).to(torch.int32)
+    sorted_keys, order = torch.sort(keys, stable=True)
+    bounds = torch.searchsorted(
+        sorted_keys, torch.arange(n + 1, dtype=torch.int32,
+                                  device=ids.device), out_int32=True)
+    return order.to(torch.int32), bounds
+
+
+def entry_sum_plain(g: torch.Tensor, order: torch.Tensor,
+                    bounds: torch.Tensor) -> torch.Tensor:
+    """[n, D] f32: lane l < GRAD_LANES of Gaussian i sums the rows g [P, D]
+    at order[bounds[i] : bounds[i + 1]], one position after another from
+    0 (a loop over the longest segment, each Gaussian masked past its
+    own); lanes >= GRAD_LANES are 0. The plain version of the entry_sum
+    kernel, in its order of addition, so the two are bit-equal."""
+    n, d = bounds.shape[0] - 1, g.shape[-1]
+    starts = bounds[:-1].to(torch.int64)
+    lens = bounds[1:].to(torch.int64) - starts
+    acc = torch.zeros((n, GRAD_LANES), dtype=torch.float32, device=g.device)
+    longest = int(lens.max()) if n else 0
+    for j in range(longest):
+        inside = j < lens
+        pos = order[torch.where(inside, starts + j, 0)].to(torch.int64)
+        acc = acc + torch.where(inside[:, None], g[pos, :GRAD_LANES], 0.0)
+    return torch.cat([acc, acc.new_zeros((n, d - GRAD_LANES))], dim=1)
+
+
+def entry_sum(g: torch.Tensor, order: torch.Tensor,
+              bounds: torch.Tensor) -> torch.Tensor:
+    """[n, D] f32 segmented sum of the gradient rows g [P, D] over each
+    Gaussian's sorted table positions (entry_order), lanes >= GRAD_LANES 0.
+
+    Not a TPU kernel: it takes index_add_'s place in the entry transpose.
+    On a CUDA tensor it launches csrc/entry_sum.cu (or raises); on a CPU
+    tensor it runs entry_sum_plain. `entry_sum.launches` counts kernel
+    launches."""
+    dev = g.device
+    if dev.type == "cpu":
+        return entry_sum_plain(g, order, bounds)
+    if dev.type != "cuda":
+        raise ValueError(f"entry_sum: unsupported device {dev}")
+    if (g.dtype != torch.float32 or g.dim() != 2 or not g.is_contiguous()
+            or g.shape[1] < GRAD_LANES):
+        raise ValueError(f"entry_sum: g must be a contiguous [P, D >= "
+                         f"{GRAD_LANES}] float32 tensor, got {g.dtype} "
+                         f"{tuple(g.shape)}")
+    for name, x in (("order", order), ("bounds", bounds)):
+        if (x.dtype != torch.int32 or x.dim() != 1 or not x.is_contiguous()
+                or x.device != dev):
+            raise ValueError(f"entry_sum: {name} must be a contiguous 1-D "
+                             f"int32 tensor on {dev}, got {x.dtype} "
+                             f"{tuple(x.shape)} on {x.device}")
+    n, d = bounds.shape[0] - 1, g.shape[1]
+    out = torch.empty((n, d), dtype=torch.float32, device=dev)
+    kernels.launch("entry_sum", dev, g.data_ptr(), order.data_ptr(),
+                   bounds.data_ptr(), n, d, out.data_ptr())
+    entry_sum.launches += 1
+    return out
+
+
+entry_sum.launches = 0
+
+
 def entry_gather_transpose(g: torch.Tensor, entry_lists: torch.Tensor,
                            k_dup: int, n: int) -> torch.Tensor:
     """Transpose of entry_gather: [n, D] f32 sums of the gradient rows g
-    [..., D] over each Gaussian's entries (invalid ids add nothing). Lanes
-    >= GRAD_LANES are zero."""
-    d = g.shape[-1]
-    valid = entry_lists >= 0
-    idx = torch.where(valid, entry_lists // k_dup, 0).reshape(-1)
-    rows = torch.where(valid[..., None], g[..., :GRAD_LANES], 0.0)
-    out = torch.zeros((n, GRAD_LANES), dtype=torch.float32, device=g.device)
-    out.index_add_(0, idx, rows.reshape(-1, GRAD_LANES))
-    return torch.nn.functional.pad(out, (0, d - GRAD_LANES))
+    [..., D] over each Gaussian's entries (invalid ids add nothing), each
+    Gaussian's rows added in table order. Lanes >= GRAD_LANES are zero."""
+    return entry_sum(g.reshape(-1, g.shape[-1]).contiguous(),
+                     *entry_order(entry_lists, k_dup, n))
 
 
 class _EntryGather(torch.autograd.Function):

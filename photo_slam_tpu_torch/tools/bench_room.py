@@ -30,10 +30,14 @@ K_DUP32 = 6            # the production 32 px binning: max_tiles_per_gaussian
 MAX_PER_TILE32 = 1024  # and max_per_tile
 
 
-def room_scene(n: int = N_GAUSSIANS, seed: int = 0):
-    """(points [n, 3], colours [n, 3]) float32, from np.random.RandomState
-    (seed); n > 60,000 (the two spheres take 30,000 points each)."""
-    rng = np.random.RandomState(seed)
+def room_scene(n: int = N_GAUSSIANS, seed: int = 0,
+               rng: np.random.RandomState | None = None):
+    """(points [n, 3], colours [n, 3]) float32, drawn from `rng` (bench.py
+    goes on drawing from its stream), np.random.RandomState(seed) when it
+    is None. The two spheres take 30,000 points each, as bench.py's do,
+    when n > 60,000, and a tenth of n each at smaller n."""
+    rng = np.random.RandomState(seed) if rng is None else rng
+    sphere_n = 30_000 if n > 60_000 else n // 10
 
     def sample_box(m):
         w, h, d = 8.0, 3.0, 12.0
@@ -58,9 +62,9 @@ def room_scene(n: int = N_GAUSSIANS, seed: int = 0):
         return c + r * v
 
     pts = np.concatenate([
-        sample_box(n - 60_000),
-        sphere(30_000, np.array([-1.0, -0.7, 4.0]), 0.8),
-        sphere(30_000, np.array([1.5, 0.2, 6.5]), 1.1),
+        sample_box(n - 2 * sphere_n),
+        sphere(sphere_n, np.array([-1.0, -0.7, 4.0]), 0.8),
+        sphere(sphere_n, np.array([1.5, 0.2, 6.5]), 1.1),
     ]).astype(np.float32)
     cols = rng.rand(n, 3).astype(np.float32)
     return pts, cols

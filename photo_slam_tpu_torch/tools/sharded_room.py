@@ -17,10 +17,10 @@ Gaussians, SH 3, 1200x680, tools/bench_room.py):
 
 Every rank builds the room from its seed. The single-process references
 and times run on rank 0 while the other ranks wait; each reference step
-runs twice, and its "ref_spread" is how far the two differ (K2's
-gradient rows reach the Gaussians through index_add_'s atomics, whose
-order of addition varies from run to run on a card). The blend and
-gather kernels' launches are counted around the sharded calls only. Run
+runs twice, and its "ref_spread" is how far the two differ (0: the entry
+transpose's entry_sum adds each Gaussian's rows in one order on every
+run). The blend, gather and entry_sum kernels' launches are counted
+around the sharded calls only. Run
 it with every rank on one card (gloo, "cuda:0"), a card per rank, or one
 NCCL rank. As a program:
 
@@ -72,7 +72,8 @@ DENSIFY = dict(grad_threshold=0.0, min_opacity=0.005, max_screen_size=0,
 
 def kernel_wrappers() -> dict:
     return {"blend_fwd": blend.blend_fwd, "blend_bwd": blend.blend_bwd,
-            "window_gather": binning.window_gather}
+            "window_gather": binning.window_gather,
+            "entry_sum": tiled.entry_sum}
 
 
 class LaunchCount:

@@ -901,15 +901,18 @@ def test_render_path_keeps_every_bit():
 
 
 def test_check_batched_launches():
-    ok = {"blend_fwd": 92, "blend_bwd": 92, "window_gather": 92}
+    ok = {"blend_fwd": 92, "blend_bwd": 92, "window_gather": 92,
+          "entry_sum": 92}
     cs.check_batched_launches(ok, 23, 4)
     with pytest.raises(AssertionError, match="blend_bwd launched 91"):
         cs.check_batched_launches({**ok, "blend_bwd": 91}, 23, 4)
     with pytest.raises(AssertionError, match="window_gather launched 23"):
         cs.check_batched_launches({**ok, "window_gather": 23}, 23, 4)
+    with pytest.raises(AssertionError, match="entry_sum launched 0"):
+        cs.check_batched_launches({**ok, "entry_sum": 0}, 23, 4)
     with pytest.raises(AssertionError, match="blend_fwd launched None"):
-        cs.check_batched_launches({"blend_bwd": 92, "window_gather": 92},
-                                  23, 4)
+        cs.check_batched_launches({"blend_bwd": 92, "window_gather": 92,
+                                   "entry_sum": 92}, 23, 4)
 
 
 def test_collective_path():
@@ -947,6 +950,38 @@ def test_check_twins():
         cs.check_twins("step", {"xyz": (0.0, 2e-4, 1.0)}, 1e-4)
     with pytest.raises(AssertionError, match="xyz_grad_accum: error"):
         cs.check_twins("NCCL step", {"xyz_grad_accum": (1e-9,)}, 0.0)
+
+
+def test_check_twins_with_an_update_tolerance():
+    """The sharded phase's form: gradients within rtol, updates within
+    update_rtol."""
+    errs = {"features_dc": (3e-7, 1.2e-5, 1.0), "xyz_grad_accum": (1e-7,)}
+    cs.check_twins("two ranks", errs, 1e-6, 1e-4)
+    with pytest.raises(AssertionError, match="features_dc: update error"):
+        cs.check_twins("two ranks", errs, 1e-6)
+    with pytest.raises(AssertionError, match="features_dc: gradient error"):
+        cs.check_twins("two ranks", {"features_dc": (2e-6, 0.0, 1.0)}, 1e-6,
+                       1e-4)
+
+
+def test_state_tensors_and_check_bit_equal():
+    """Every tensor of a map and its Adam state, compared bit for bit."""
+    import torch
+
+    from photo_slam_tpu_torch.models import gaussian_model as tgm
+    from photo_slam_tpu_torch.models import optimizer as toptim
+
+    pts = np.random.RandomState(0).rand(20, 3).astype(np.float32) + [0, 0, 4]
+    st = tgm.create_from_pcd(pts, np.full((20, 3), 0.5, np.float32),
+                             sh_degree=1, capacity=32, device="cpu")
+    opt = toptim.init_adam(st.params)
+    a = cs.state_tensors(st, opt)
+    assert len(a) == 6 + 4 + 6 + 6 + 1
+    cs.check_bit_equal(torch, "same", a, cs.state_tensors(
+        tgm.clone_state(st), opt))
+    moved = st._replace(denom=st.denom + 1.0)
+    with pytest.raises(AssertionError, match=r"not bit-equal in \['denom'\]"):
+        cs.check_bit_equal(torch, "moved", a, cs.state_tensors(moved, opt))
 
 
 def test_twin_errors():
