@@ -41,9 +41,9 @@ LAUNCHERS = {
     "blend_fwd": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
     "blend_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P],
     "window_gather": [_P, _I, _P, _P, _I, _I, _P, _P],
-    # The entry transpose's deterministic sum (ops/tiled.py), in
-    # index_add_'s place.
-    "entry_sum": [_P, _P, _P, _I, _I, _P, _P],
+    # The entry transpose in pointer form (ops/tiled.py), in index_add_'s
+    # place: g, lists, P, n, k_dup, D, ptr scratch, repeats, out.
+    "entry_sum": [_P, _P, _LL, _I, _I, _I, _P, _P, _P, _P],
     # Stereo path aggregation (ops/stereo.py), in OpenCV's StereoSGBM's place.
     "sgm": [_P, _I, _I, _P, _P],
     # The blend experiments (photo_slam_tpu_torch/tools/).

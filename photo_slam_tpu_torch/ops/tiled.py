@@ -4,12 +4,14 @@ Counterpart of photo_slam_tpu/ops/tiled.py::render_pallas, differentiable
 with respect to the preprocessed Gaussians (binning sees detached inputs,
 as JAX's stop_gradient does). `entry_gather` is the row gather
 feat[max(id, 0) // k_dup]; its transpose (`entry_gather_transpose`) sums
-each [T, K, 16] gradient row back into its Gaussian in f32: a stable sort
-of the table positions by Gaussian (`entry_order`), then the segmented sum
-`entry_sum` (csrc/entry_sum.cu, no atomics), so the sum is the same on
-every run. The JAX package routes bf16 rows through sorts
-(photo_slam_tpu/ops/tiled.py:97-218, 245-286, a TPU workaround). Only the
-lanes 0-8 carry gradient.
+each [T, K, 16] gradient row back into its Gaussian in f32 with the
+`entry_sum` kernel (csrc/entry_sum.cu, no sort, no atomics in the sum):
+the pointer form of the JAX package's fallback route
+(photo_slam_tpu/ops/tiled.py:125-153), ptr[id] = table position of each
+entry id (ids are unique within a table), then each Gaussian's k_dup slots
+added in slot order, so the sum is the same on every run. The JAX package's
+main route sorts bf16 rows instead (a TPU workaround). Only the lanes 0-8
+carry gradient.
 """
 from __future__ import annotations
 
@@ -26,87 +28,109 @@ from photo_slam_tpu_torch.ops.preprocess import Preprocessed, tight_extents
 GRAD_LANES = 9  # packed lanes that carry gradient (ops/blend.py layout)
 
 
-def entry_order(entry_lists: torch.Tensor, k_dup: int,
-                n: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """The table positions of entry ids `entry_lists` [...] sorted by
-    Gaussian (id // k_dup) with a stable sort, invalid ids (< 0) last:
-    (order [P] int32 positions into the flattened table, bounds [n + 1]
-    int32), Gaussian i's positions in table order at order[bounds[i] :
-    bounds[i + 1]]. Plain torch on both devices (the JAX package's sorts
-    are XLA); a stable sort has one result, so the order is the same on
-    every run."""
-    ids = entry_lists.reshape(-1)
-    keys = torch.where(ids >= 0, torch.div(ids, k_dup, rounding_mode="floor"),
-                       n).to(torch.int32)
-    sorted_keys, order = torch.sort(keys, stable=True)
-    bounds = torch.searchsorted(
-        sorted_keys, torch.arange(n + 1, dtype=torch.int32,
-                                  device=ids.device), out_int32=True)
-    return order.to(torch.int32), bounds
+def entry_pointer(lists: torch.Tensor, k_dup: int, n: int) -> torch.Tensor:
+    """ptr [n, k_dup] int64: ptr[i, j] is the position in the flattened table
+    `lists` (entry ids gaussian * k_dup + slot, -1 invalid) of entry id
+    i * k_dup + j, -1 where the table holds none (an index_put_ of the
+    positions). Ids must be unique within the table and below n * k_dup: on
+    a CPU tensor a repeated or out-of-range id raises ValueError; on the
+    card nothing is checked here (the kernel counts such ids instead) and
+    out-of-range ids are left out."""
+    dev, m = lists.device, n * k_dup
+    ids = lists.reshape(-1).to(torch.int64)
+    ok = (ids >= 0) & (ids < m)
+    # Left-out ids land in a spare last slot, so nothing syncs on the card.
+    ptr = torch.full((m + 1,), -1, dtype=torch.int64, device=dev)
+    ptr.index_put_((torch.where(ok, ids, m),),
+                   torch.arange(ids.shape[0], device=dev))
+    ptr = ptr[:m]
+    if dev.type == "cpu":
+        if bool((ids >= m).any()):
+            raise ValueError(f"entry_sum: entry id {int(ids.max())} out of "
+                             f"range [0, {m})")
+        if int((ptr >= 0).sum()) != int(ok.sum()):
+            raise ValueError("entry_sum: an entry id is repeated in the "
+                             "table")
+    return ptr.reshape(n, k_dup)
 
 
-def entry_sum_plain(g: torch.Tensor, order: torch.Tensor,
-                    bounds: torch.Tensor) -> torch.Tensor:
+def entry_sum_plain(g: torch.Tensor, lists: torch.Tensor, k_dup: int,
+                    n: int) -> torch.Tensor:
     """[n, D] f32: lane l < GRAD_LANES of Gaussian i sums the rows g [P, D]
-    at order[bounds[i] : bounds[i + 1]], one position after another from
-    0 (a loop over the longest segment, each Gaussian masked past its
-    own); lanes >= GRAD_LANES are 0. The plain version of the entry_sum
-    kernel, in its order of addition, so the two are bit-equal."""
-    n, d = bounds.shape[0] - 1, g.shape[-1]
-    starts = bounds[:-1].to(torch.int64)
-    lens = bounds[1:].to(torch.int64) - starts
+    of its entry ids i * k_dup + j in the table `lists` [P], slot j = 0 ..
+    k_dup-1 one after another from 0 (entry_pointer, then a loop over the
+    slots adding the masked rows); lanes >= GRAD_LANES are 0. The plain
+    version of the entry_sum kernel, in its order of addition, so the two
+    are bit-equal."""
+    ptr = entry_pointer(lists, k_dup, n)
     acc = torch.zeros((n, GRAD_LANES), dtype=torch.float32, device=g.device)
-    longest = int(lens.max()) if n else 0
-    for j in range(longest):
-        inside = j < lens
-        pos = order[torch.where(inside, starts + j, 0)].to(torch.int64)
-        acc = acc + torch.where(inside[:, None], g[pos, :GRAD_LANES], 0.0)
-    return torch.cat([acc, acc.new_zeros((n, d - GRAD_LANES))], dim=1)
+    for j in range(k_dup):
+        pos = ptr[:, j]
+        has = pos >= 0
+        acc = acc + torch.where(has[:, None],
+                                g[torch.where(has, pos, 0), :GRAD_LANES], 0.0)
+    return torch.cat([acc, acc.new_zeros((n, g.shape[-1] - GRAD_LANES))],
+                     dim=1)
 
 
-def entry_sum(g: torch.Tensor, order: torch.Tensor,
-              bounds: torch.Tensor) -> torch.Tensor:
-    """[n, D] f32 segmented sum of the gradient rows g [P, D] over each
-    Gaussian's sorted table positions (entry_order), lanes >= GRAD_LANES 0.
+def entry_sum(g: torch.Tensor, lists: torch.Tensor, k_dup: int,
+              n: int) -> torch.Tensor:
+    """[n, D] f32 sum of the gradient rows g [P, D] into the Gaussians of
+    their entry ids `lists` [P] (gaussian * k_dup + slot, -1 invalid), each
+    Gaussian's slots added in slot order; lanes >= GRAD_LANES 0. Ids must be
+    unique within the table and below n * k_dup (entry_pointer).
 
     Not a TPU kernel: it takes index_add_'s place in the entry transpose.
-    On a CUDA tensor it launches csrc/entry_sum.cu (or raises); on a CPU
-    tensor it runs entry_sum_plain. `entry_sum.launches` counts kernel
-    launches."""
+    On a CUDA tensor it launches csrc/entry_sum.cu (or raises): the pointer's
+    fill, its scatter and the sum, one launcher. A repeated or out-of-range
+    id adds one to the device int32 counter `entry_sum.repeats[index]` of
+    the card (made at first use, never read back here). On a CPU tensor it
+    runs entry_sum_plain. `entry_sum.launches` counts kernel launches."""
     dev = g.device
     if dev.type == "cpu":
-        return entry_sum_plain(g, order, bounds)
+        return entry_sum_plain(g, lists, k_dup, n)
     if dev.type != "cuda":
         raise ValueError(f"entry_sum: unsupported device {dev}")
     if (g.dtype != torch.float32 or g.dim() != 2 or not g.is_contiguous()
-            or g.shape[1] < GRAD_LANES):
-        raise ValueError(f"entry_sum: g must be a contiguous [P, D >= "
-                         f"{GRAD_LANES}] float32 tensor, got {g.dtype} "
+            or g.shape[1] < 12 or g.shape[1] % 4 or g.data_ptr() % 16):
+        raise ValueError(f"entry_sum: g must be a contiguous 16-byte aligned "
+                         f"[P, D] float32 tensor with D a multiple of 4 and "
+                         f">= 12 (rows are read as float4), got {g.dtype} "
                          f"{tuple(g.shape)}")
-    for name, x in (("order", order), ("bounds", bounds)):
-        if (x.dtype != torch.int32 or x.dim() != 1 or not x.is_contiguous()
-                or x.device != dev):
-            raise ValueError(f"entry_sum: {name} must be a contiguous 1-D "
-                             f"int32 tensor on {dev}, got {x.dtype} "
-                             f"{tuple(x.shape)} on {x.device}")
-    n, d = bounds.shape[0] - 1, g.shape[1]
-    out = torch.empty((n, d), dtype=torch.float32, device=dev)
-    kernels.launch("entry_sum", dev, g.data_ptr(), order.data_ptr(),
-                   bounds.data_ptr(), n, d, out.data_ptr())
+    if (lists.dtype != torch.int32 or lists.dim() != 1
+            or not lists.is_contiguous() or lists.device != dev
+            or lists.shape[0] != g.shape[0]):
+        raise ValueError(f"entry_sum: lists must be a contiguous [P] int32 "
+                         f"tensor on {dev} with P = {g.shape[0]}, got "
+                         f"{lists.dtype} {tuple(lists.shape)} on "
+                         f"{lists.device}")
+    if k_dup < 1 or n < 0 or n * k_dup >= 2**31 or g.shape[0] >= 2**31:
+        raise ValueError(f"entry_sum: k_dup {k_dup}, n {n} and P "
+                         f"{g.shape[0]} must keep ids and positions in int32")
+    repeats = entry_sum.repeats.get(dev.index)
+    if repeats is None:
+        repeats = entry_sum.repeats.setdefault(
+            dev.index, torch.zeros(1, dtype=torch.int32, device=dev))
+    ptr = torch.empty(n * k_dup, dtype=torch.int32, device=dev)
+    out = torch.empty((n, g.shape[1]), dtype=torch.float32, device=dev)
+    kernels.launch("entry_sum", dev, g.data_ptr(), lists.data_ptr(),
+                   g.shape[0], n, k_dup, g.shape[1], ptr.data_ptr(),
+                   repeats.data_ptr(), out.data_ptr())
     entry_sum.launches += 1
     return out
 
 
 entry_sum.launches = 0
+entry_sum.repeats = {}   # card index -> int32 [1]: repeated or bad ids seen
 
 
 def entry_gather_transpose(g: torch.Tensor, entry_lists: torch.Tensor,
                            k_dup: int, n: int) -> torch.Tensor:
     """Transpose of entry_gather: [n, D] f32 sums of the gradient rows g
     [..., D] over each Gaussian's entries (invalid ids add nothing), each
-    Gaussian's rows added in table order. Lanes >= GRAD_LANES are zero."""
+    Gaussian's slots added in slot order. Lanes >= GRAD_LANES are zero."""
     return entry_sum(g.reshape(-1, g.shape[-1]).contiguous(),
-                     *entry_order(entry_lists, k_dup, n))
+                     entry_lists.reshape(-1).contiguous(), k_dup, n)
 
 
 class _EntryGather(torch.autograd.Function):

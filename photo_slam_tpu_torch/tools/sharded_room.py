@@ -20,7 +20,8 @@ and times run on rank 0 while the other ranks wait; each reference step
 runs twice, and its "ref_spread" is how far the two differ (0: the entry
 transpose's entry_sum adds each Gaussian's rows in one order on every
 run). The blend, gather and entry_sum kernels' launches are counted
-around the sharded calls only. Run
+around the sharded calls only; "entry_repeats" is the count of repeated or
+out-of-range entry ids that entry_sum saw on the rank's card (0). Run
 it with every rank on one card (gloo, "cuda:0"), a card per rank, or one
 NCCL rank. As a program:
 
@@ -373,6 +374,8 @@ def room_rank(rank: int, world: int, cfg: dict) -> dict:
                           "next_loss": float(met["loss"])}
     torch.cuda.synchronize(dev)
     out["launches"] = count.counts
+    repeats = tiled.entry_sum.repeats.get(dev.index)
+    out["entry_repeats"] = 0 if repeats is None else int(repeats)
     out["peak_mib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 20
     return out
 

@@ -1049,3 +1049,35 @@ def test_caps_that_do_not_bind():
     assert int(b.num_clipped) == 0 and int(b.num_overflow) == 0
     assert int(b.raw_counts.max()) > mpt - 256
     assert int(bins(k - 1, mpt).num_clipped) > 0
+
+
+def test_entry_sum_bytes_and_planted_ids():
+    """The entry transpose's bound counts the table's ids, two sectors a
+    valid row and the output (~0.0153 ms on the room's pass-1 table); the
+    planted table holds one repeat and one id past the last, each of which
+    the plain version refuses on the CPU; check_repeats passes on zero
+    counters and fails on any other."""
+    from photo_slam_tpu_torch.ops import tiled
+
+    nbytes, design = cs.entry_sum_bytes(836 * 1024, 446_476, 300_000, 6)
+    assert nbytes == 51_198_720
+    assert design == nbytes + 2 * 7_200_000 + 4 * 446_476
+    assert cs.bound(0, nbytes) == (pytest.approx(0.015283, abs=1e-6),
+                                   "bytes")
+    n, k_dup = 8, 3
+    ids = torch.tensor([5, -1, 0, 7, 23, -1, 2], dtype=torch.int32)
+    bad = cs.plant_bad_ids(torch, ids, n * k_dup)
+    assert bad.tolist() == [5, -1, 5, 24, 23, -1, 2]
+    g = torch.zeros((7, 16))
+    with pytest.raises(ValueError, match="repeated"):
+        tiled.entry_sum_plain(g, torch.where(bad == 24, -1, bad), k_dup, n)
+    with pytest.raises(ValueError, match="out of range"):
+        tiled.entry_sum_plain(g, bad, k_dup, n)
+
+    class Wrapper:
+        repeats = {0: torch.zeros(1, dtype=torch.int32)}
+
+    cs.check_repeats({"entry_sum": Wrapper, "blend_fwd": object()})
+    Wrapper.repeats[0] += 1
+    with pytest.raises(AssertionError, match="counted 1 repeated"):
+        cs.check_repeats({"entry_sum": Wrapper})

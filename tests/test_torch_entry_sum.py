@@ -1,8 +1,9 @@
-"""The entry transpose's deterministic sum (photo_slam_tpu_torch/ops/tiled.py:
-entry_order, entry_sum and its plain version, which the CPU runs) against
-index_add_, against JAX's f32 gather VJP and against JAX's kernel-path
-entry_gather (photo_slam_tpu/ops/tiled.py::entry_gather, whose sort route
-rounds each routed row to bf16), on identical numpy inputs."""
+"""The entry transpose in pointer form (photo_slam_tpu_torch/ops/tiled.py:
+entry_pointer, entry_sum and its plain version, which the CPU runs) against
+index_add_, against a table-order stable-sort sum, against JAX's f32 gather
+VJP and against JAX's kernel-path entry_gather
+(photo_slam_tpu/ops/tiled.py::entry_gather, whose sort route rounds each
+routed row to bf16), on identical numpy inputs."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -21,11 +22,16 @@ LANES = ttiled.GRAD_LANES
 
 
 def random_table(seed, n=50, k_dup=6, shape=(7, 40), d=16):
-    """Entry ids with repeats and -1s, and gradient rows [..., d]."""
+    """Unique entry ids (a random subset of range(n * k_dup) at random
+    slots of the table, the rest -1) and gradient rows [..., d]."""
     rng = np.random.RandomState(seed)
-    lists = rng.randint(-1, n * k_dup, shape).astype(np.int32)
+    slots, m = int(np.prod(shape)), n * k_dup
+    count = rng.randint(min(slots, m) // 2, min(slots, m) + 1)
+    lists = np.full(slots, -1, np.int32)
+    lists[rng.choice(slots, count, replace=False)] = rng.choice(
+        m, count, replace=False)
     g = rng.randn(*shape, d).astype(np.float32)
-    return lists, g
+    return lists.reshape(shape), g
 
 
 def port_transpose(g, lists, k_dup, n):
@@ -35,8 +41,8 @@ def port_transpose(g, lists, k_dup, n):
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_plain_sum_matches_index_add(seed):
-    """Within 1e-6 (f32 sums in another order) of index_add_ on random ids
-    with repeats; lanes >= 9 are zero."""
+    """Within 1e-6 (f32 sums in another order) of index_add_ on random
+    unique ids; lanes >= 9 are zero."""
     n, k_dup = 50, 6
     lists, g = random_table(seed, n, k_dup)
     got = port_transpose(g, lists, k_dup, n)
@@ -52,14 +58,34 @@ def test_plain_sum_matches_index_add(seed):
     assert (got[:, LANES:] == 0).all()
 
 
-def test_order_and_bounds_are_stable_segments():
-    """entry_order: each Gaussian's positions in table order, invalid ids
-    after every segment."""
+def test_pointer_layout_and_slot_order():
+    """entry_pointer: ptr[i, j] is the table position of entry id
+    i * k_dup + j, -1 where the table holds none; the sum adds a Gaussian's
+    rows in slot order, not table order (1e8 + 1 rounds to 1e8 in f32, so
+    the two orders give 2 and 0)."""
     lists = np.array([[5, -1, 0, 13], [2, 7, -1, 1]], np.int32)
-    order, bounds = ttiled.entry_order(torch.from_numpy(lists), 6, 3)
-    assert order.dtype == bounds.dtype == torch.int32
-    assert bounds.tolist() == [0, 4, 5, 6]
-    assert order.tolist() == [0, 2, 4, 7, 5, 3, 1, 6]
+    ptr = ttiled.entry_pointer(torch.from_numpy(lists), 6, 3)
+    assert ptr.tolist() == [[2, 7, 4, -1, -1, 0],
+                            [-1, 5, -1, -1, -1, -1],
+                            [-1, 3, -1, -1, -1, -1]]
+    g = np.zeros((2, 4, 16), np.float32)
+    g.reshape(-1, 16)[[0, 2, 4, 7], 0] = [1.0, 1e8, 1.0, -1e8]
+    out = port_transpose(g, lists, 6, 3)
+    assert float(out[0, 0]) == 2.0
+    table_order = np.float32(0)
+    for v in g.reshape(-1, 16)[[0, 2, 4, 7], 0]:
+        table_order += v
+    assert table_order == 0.0
+
+
+@pytest.mark.parametrize("bad", ["repeated", "out of range"])
+def test_repeated_or_out_of_range_id_raises(bad):
+    lists, g = random_table(4)
+    ids = lists.reshape(-1)
+    valid = np.flatnonzero(ids >= 0)
+    ids[valid[1]] = ids[valid[0]] if bad == "repeated" else 50 * 6
+    with pytest.raises(ValueError, match=bad.split()[0]):
+        port_transpose(g, lists, 6, 50)
 
 
 def test_two_calls_bit_equal_with_four_threads():
@@ -144,3 +170,61 @@ def test_vjp_matches_jax_kernel_path_entry_gather():
     want = np.asarray(vjp(jnp.asarray(g))[0])
     got = port_vjp(feat, np.array(b.tile_lists), g, k_dup)
     np.testing.assert_allclose(got, want, atol=6e-3 * np.abs(want).max())
+
+
+def table_order_sum(g, lists, k_dup, n):
+    """The sort-based route as a reference: the table positions stably
+    sorted by Gaussian, each Gaussian's rows added in table order from 0
+    in f32."""
+    ids, rows = lists.reshape(-1), g.reshape(-1, g.shape[-1])
+    keys = np.where(ids >= 0, ids // k_dup, n)
+    out = np.zeros((n, rows.shape[1]), np.float32)
+    for p in np.argsort(keys, kind="stable"):
+        if ids[p] < 0:
+            break
+        out[ids[p] // k_dup, :LANES] += rows[p, :LANES]
+    return out
+
+
+def test_pass1_table_sum_bit_equal_to_table_order_sort():
+    """On JAX's binned table (tile order) a Gaussian's slots lie in rising
+    tiles, so slot order is table order: the pointer-form sum is bit-equal
+    to the stable-sort segmented sum it replaced."""
+    b, _, g, n, k_dup = binned_table()
+    lists = np.array(b.tile_lists)
+    got = port_transpose(g, lists, k_dup, n).numpy()
+    np.testing.assert_array_equal(got, table_order_sum(g, lists, k_dup, n))
+
+
+def test_compact_continuation_window_matches_index_add():
+    """A compact continuation window (the overflowed tiles' next windows,
+    the tiles in score order, so a Gaussian's rows are not in slot order)
+    against index_add_ within 1e-6 (f32 sums in another order)."""
+    b, _, _, n, k_dup = binned_table()
+    kmax, cap = 32, 64
+    raw, starts = np.asarray(b.raw_counts), np.asarray(b.starts)
+    se = np.asarray(b.sorted_entries)
+    rng = np.random.RandomState(6)
+    over = np.flatnonzero(raw > kmax)
+    order = over[np.argsort(-rng.rand(over.size), kind="stable")]
+    lists = np.full((order.size, cap), -1, np.int32)
+    for r, t in enumerate(order):
+        c = min(raw[t] - kmax, cap)
+        lists[r, :c] = se[starts[t] + kmax: starts[t] + kmax + c]
+    ids = lists.reshape(-1)
+    pos_by_id = {e: p for p, e in enumerate(ids) if e >= 0}
+    out_of_order = sum(
+        1 for i in range(n)
+        if np.any(np.diff([pos_by_id[i * k_dup + j] for j in range(k_dup)
+                           if i * k_dup + j in pos_by_id]) < 0))
+    assert out_of_order > 0
+    g = rng.randn(order.size, cap, 16).astype(np.float32)
+    got = port_transpose(g, lists, k_dup, n)
+    valid = torch.from_numpy(ids >= 0)
+    want = torch.zeros((n, LANES)).index_add_(
+        0, torch.from_numpy(np.where(ids >= 0, ids // k_dup, 0)),
+        torch.where(valid[:, None], torch.from_numpy(g).reshape(-1, 16)[
+            :, :LANES], 0.0))
+    np.testing.assert_allclose(got[:, :LANES].numpy(), want.numpy(),
+                               atol=1e-6, rtol=1e-6)
+    assert (got[:, LANES:] == 0).all()

@@ -119,7 +119,12 @@ def test_two_pass_compact_gradients_match_big_capacity():
 def test_entry_gather_transpose_matches_numpy_scatter_add():
     rng = np.random.RandomState(4)
     n, k_dup, d = 50, 6, 16
-    lists = rng.randint(-1, n * k_dup, (7, 40)).astype(np.int32)
+    # Entry ids are unique within a table (bin_gaussians emits each
+    # (Gaussian, slot) once): a random subset of them at random slots.
+    lists = np.full(7 * 40, -1, np.int32)
+    lists[rng.choice(7 * 40, 200, replace=False)] = rng.choice(
+        n * k_dup, 200, replace=False)
+    lists = lists.reshape(7, 40)
     g = rng.randn(7, 40, d).astype(np.float32)
     want = np.zeros((n, d), np.float64)
     for e, row in zip(lists.reshape(-1), g.reshape(-1, d)):
