@@ -5,6 +5,12 @@ examples/train_colmap.cpp): load cameras/images/points3D.bin and the image
 files, build the scene, run the offline training loop on one device, save
 the model and a summary.
 
+Every --log-every iterations the trainer prints and keeps a trace row
+(GaussianTrainer.trace_row). summary.json holds the trace, the first
+iteration's PSNR, the iteration at which the capacity reached
+`max_capacity` (null if it did not) and, on a card, the peak device
+memory.
+
 Usage:
   python -m photo_slam_tpu_torch.apps.train_colmap \
       --data <colmap_root with sparse/0 and images/> \
@@ -75,7 +81,10 @@ def build_scene_from_colmap(data_dir, cfg: Config, *, device,
     return scene, (xyz, rgb)
 
 
-def main(argv=None):
+def main(argv=None) -> tuple[dict, GaussianTrainer]:
+    """Train and save; returns the summary and the trainer."""
+    from photo_slam_tpu_torch.apps.online_slam import cli_device
+
     ap = argparse.ArgumentParser()
     ap.add_argument("--data", required=True)
     ap.add_argument("--out", required=True)
@@ -86,13 +95,7 @@ def main(argv=None):
                     help="torch device to train on (default: cuda)")
     args = ap.parse_args(argv)
 
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("--device cuda: no CUDA device is available "
-                           "(pass --device cpu to train on the CPU)")
-    # The renderer's float32 products stay full precision on the card.
-    torch.backends.cuda.matmul.allow_tf32 = False
-
+    device = cli_device(args.device)
     cfg = load_reference_yaml(args.cfg) if args.cfg else Config()
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
@@ -102,14 +105,16 @@ def main(argv=None):
     trainer.initialize_map(xyz, rgb)
 
     iters = args.iters or cfg.opt.max_num_iterations
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
     t0 = time.time()
-    trainer.train(num_iterations=iters, log_every=args.log_every)
+    met = trainer.train(num_iterations=iters, log_every=args.log_every)
     wall = time.time() - t0
 
     it_dir = out / "point_cloud" / f"iteration_{trainer.iteration}"
     trainer.save_ply(it_dir / "point_cloud.ply")
     save_points_ply(out / "input.ply", xyz, (rgb * 255).astype(np.uint8))
-    (out / "summary.json").write_text(json.dumps({
+    summary = {
         "iterations": trainer.iteration,
         "wall_seconds": wall,
         "iters_per_sec": trainer.iteration / max(wall, 1e-9),
@@ -117,11 +122,21 @@ def main(argv=None):
         "last_psnr": trainer.metrics.last_psnr,
         "num_gaussians": trainer.metrics.num_live,
         "device": str(device),
-    }, indent=2))
+        "first_psnr": met.first_psnr,
+        "capacity": trainer.state.capacity,
+        "max_capacity": cfg.renderer.max_capacity,
+        "ceiling_reached_at": met.ceiling_reached_at,
+        "num_dropped": trainer.metrics.num_dropped,
+        "peak_memory_gib": (torch.cuda.max_memory_allocated(device) / 2**30
+                            if device.type == "cuda" else None),
+        "trace": met.trace,
+    }
+    (out / "summary.json").write_text(json.dumps(summary, indent=2))
     print(f"[train_colmap] {trainer.iteration} iters in {wall:.1f}s "
           f"({trainer.iteration / max(wall, 1e-9):.1f} it/s), "
           f"PSNR {trainer.metrics.last_psnr:.2f}, "
           f"{trainer.metrics.num_live} gaussians on {device} -> {out}")
+    return summary, trainer
 
 
 if __name__ == "__main__":

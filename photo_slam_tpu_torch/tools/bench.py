@@ -211,6 +211,18 @@ def gt_world(pts: np.ndarray, device) -> gm.GaussianState:
     return st._replace(params=st.params._replace(opacity_logit=opacity))
 
 
+def probe_exact(gt_state: gm.GaussianState, settings: RenderSettings,
+                bg: torch.Tensor) -> RenderSettings:
+    """The scoring render of the soak (and of tools/attr_quality.py):
+    exact_settings sized from the 1-pass render of the GT world from the
+    identity pose."""
+    cam0 = camera(0.0, 0.0, 0.0, 0.0, settings.width, settings.height,
+                  bg.device)
+    probe = render_image(gt_state, cam0, settings, bg)
+    return exact_settings(settings, int(probe.num_overflow_tiles),
+                          int(probe.max_tile_depth))
+
+
 def quality_protocol(pts: np.ndarray, width: int, height: int, device,
                      clean: bool = False,
                      exact: RenderSettings | None = None) -> Protocol:
@@ -222,11 +234,8 @@ def quality_protocol(pts: np.ndarray, width: int, height: int, device,
     settings = settings_for(width, height, MAX_PER_TILE32)
     bg = torch.zeros(3, device=device)
     gt_state = gt_world(pts, device)
-    cam0 = camera(0.0, 0.0, 0.0, 0.0, width, height, device)
     if exact is None:
-        probe = render_image(gt_state, cam0, settings, bg)
-        exact = exact_settings(settings, int(probe.num_overflow_tiles),
-                               int(probe.max_tile_depth))
+        exact = probe_exact(gt_state, settings, bg)
     views = [camera(*v, width, height, device) for v in TRAIN_VIEWS]
     test_cams = [camera(*v, width, height, device) for v in TEST_VIEWS]
     crng = np.random.RandomState(CORRUPT_SEED)
@@ -347,8 +356,9 @@ def parse_args(argv):
     return args, device
 
 
-def main(argv=None) -> dict:
-    """Run the benchmark; print its one JSON line and return it."""
+def main(argv=None) -> tuple[dict, gm.GaussianState]:
+    """Run the benchmark; print its one JSON line and return it with the
+    quality fit's state."""
     t_start = time.time()
     args, dev = parse_args(argv)
     n, width, height = args.n, args.width, args.height
@@ -499,7 +509,7 @@ def main(argv=None) -> dict:
         "card": card})
     result["extra"] = extra
     print(json.dumps(result), flush=True)
-    return result
+    return result, model
 
 
 def stage_ms(state, cam, gt, settings, bg, lrs, frame_ms, stage_reps: int,

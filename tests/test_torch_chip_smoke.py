@@ -18,7 +18,9 @@ batched phases': the stages of a /render request, a served PNG against a
 render, the /render query and the batched step's launch check; and the
 sharded phase's: the collective path, the ranks' launches summed, the
 bytes of each collective, the twin checks and the caps that do not
-bind."""
+bind; and the colmap and attr phases': the call counter they count
+densify events and capacity growths with, the colmap run's checks and
+line, and the numbers of an attribution they hold finite."""
 import numpy as np
 import pytest
 import torch
@@ -1081,3 +1083,155 @@ def test_entry_sum_bytes_and_planted_ids():
     Wrapper.repeats[0] += 1
     with pytest.raises(AssertionError, match="counted 1 repeated"):
         cs.check_repeats({"entry_sum": Wrapper})
+
+
+def test_counting_calls_counts_and_puts_back():
+    """counting_calls wraps each named function for the block (the colmap
+    and trainer phases count densify events and capacity growths so) and
+    puts the originals back, also when the block raises."""
+    from photo_slam_tpu_torch.mapper import trainer as trainer_mod
+    from photo_slam_tpu_torch.models import gaussian_model as gm
+
+    densify, grow = trainer_mod.densify_step, gm.grow_capacity
+    state = gm.create_from_pcd(np.zeros((3, 3), np.float32),
+                               np.zeros((3, 3), np.float32), sh_degree=0,
+                               capacity=4, device="cpu")
+    with cs.counting_calls({"grow_capacity": (gm, "grow_capacity"),
+                            "densify": (trainer_mod, "densify_step")}) as n:
+        assert gm.grow_capacity(state, 8).capacity == 8
+        gm.grow_capacity(state, 16)
+    assert n == {"grow_capacity": 2, "densify": 0}
+    assert (trainer_mod.densify_step, gm.grow_capacity) == (densify, grow)
+    with pytest.raises(ValueError):
+        with cs.counting_calls({"grow_capacity": (gm, "grow_capacity")}):
+            gm.grow_capacity(state, 2)
+    assert gm.grow_capacity is grow
+
+
+def colmap_summary(**kw):
+    """A train_colmap summary.json of a run that passes the colmap checks."""
+    rows = [{"iter": 100 * i, "live": 20_000 + 30_000 * i,
+             "capacity": 65_536 if i < 5 else 131_072, "psnr": 15.0 + i,
+             "clipped": 10 * i, "overflow": 1000 * i, "dropped": 0,
+             "iters_per_sec": 30.0} for i in range(1, 17)]
+    return {"iterations": 1600, "wall_seconds": 53.3, "iters_per_sec": 30.0,
+            "first_psnr": 12.0, "last_psnr": 24.5, "num_gaussians": 470_000,
+            "capacity": 1 << 20, "max_capacity": 1 << 21,
+            "ceiling_reached_at": None, "num_dropped": 0,
+            "peak_memory_gib": 3.25, "trace": rows, **kw}
+
+
+def test_check_colmap_run():
+    """The colmap phase's checks pass on a run that densified 11 times,
+    grew, raised its PSNR and launched every train kernel, and fail on a
+    run short of any of them."""
+    launches = dict.fromkeys(cs.TRAIN_KERNELS, 1600)
+    events = {"densify": 11, "grow_capacity": 2}
+    cs.check_colmap_run(colmap_summary(), events, launches, 1600, 20_000)
+    bad = [(colmap_summary(iterations=1599), events, launches),
+           (colmap_summary(last_psnr=11.0), events, launches),
+           (colmap_summary(num_gaussians=20_000), events, launches),
+           (colmap_summary(), {"densify": 9, "grow_capacity": 2}, launches),
+           (colmap_summary(), {"densify": 11, "grow_capacity": 0}, launches),
+           (colmap_summary(capacity=65_536), events, launches),
+           (colmap_summary(), events, {**launches, "entry_sum": 0})]
+    for summary, ev, la in bad:
+        with pytest.raises(AssertionError, match="colmap"):
+            cs.check_colmap_run(summary, ev, la, 1600, 20_000)
+    line = cs.colmap_line(colmap_summary(), events, 4.5)
+    for part in ("1600 iterations", "30.00 it/s", "PSNR 12.00 -> 24.50",
+                 "live 470000", "capacity 1048576", "peak memory 3.25 GiB",
+                 "clipped 160 overflow 16000", "dropped 0"):
+        assert part in line, part
+
+
+def test_attr_numbers():
+    """attr_numbers gives the phase every number of the four items, each
+    view's too, for its finite check."""
+    report = {"held_out_psnr_db": 20.0, "train_view_psnr_db": 21.0,
+              "generalization_gap_db": 1.0,
+              "held_out_psnr_kdup16_db": 20.1,
+              "held_out_psnr_tf32_db": float("nan"),
+              "gt_render_1pass_vs_exact_db": 35.0,
+              "per_view": {"held_out": [19.0, 21.0], "train": [21.0] * 5}}
+    nums = cs.attr_numbers(report)
+    assert len(nums) == 6 + 7 and not all(np.isfinite(nums))
+    report["held_out_psnr_tf32_db"] = 19.9
+    assert all(np.isfinite(cs.attr_numbers(report)))
+
+
+def test_blas_calls():
+    """blas_calls finds the matrix products of one call from a trace (the
+    attr phase prints those of the scoring render under TF32) and none in
+    a call that has none."""
+    a = torch.ones((8, 8))
+    ops, kernels = cs.blas_calls(torch, lambda: a @ a @ a)
+    assert ops == {"aten::mm": 2} and kernels == []
+    assert cs.blas_calls(torch, lambda: (a * a).sum()) == ({}, [])
+
+
+@pytest.fixture(scope="module")
+def colmap_run(tmp_path_factory):
+    """train_colmap's main on the CPU for 3 iterations on synth_colmap's
+    dataset at 3 views of 64x48: (summary, trainer, dataset, out)."""
+    from photo_slam_tpu_torch.apps import train_colmap
+    from photo_slam_tpu_torch.tools import synth_colmap
+
+    root = tmp_path_factory.mktemp("colmap_run")
+    data = synth_colmap.write(root / "data", 3, 64, 48, device="cpu")
+    summary, trainer = train_colmap.main([
+        "--data", str(data), "--out", str(root / "out"), "--iters", "3",
+        "--log-every", "0", "--device", "cpu"])
+    return summary, trainer, data, root / "out"
+
+
+def colmap_mods():
+    from photo_slam_tpu_torch.apps import view_result
+    from photo_slam_tpu_torch.config import Config
+    from photo_slam_tpu_torch.models import gaussian_model as gm
+    from photo_slam_tpu_torch.ops import losses
+    from photo_slam_tpu_torch.ops.render import RenderSettings, render
+
+    return dict(view_result=view_result, Config=Config, gm=gm,
+                psnr=losses.psnr, render=render,
+                RenderSettings=RenderSettings)
+
+
+def test_ply_round_trip(colmap_run):
+    """The colmap phase's PLY check: the saved map loaded back renders
+    view 0 within PLY_ROUND_TRIP_ATOL of the map in memory through the
+    same view_result render; a map whose saved opacities were changed does
+    not."""
+    from photo_slam_tpu_torch.tools import synth_colmap
+
+    summary, trainer, _, out = colmap_run
+    (path,) = (out / "point_cloud").rglob("point_cloud.ply")
+    R, c_w = synth_colmap.view_pose(0, 3, np.random.RandomState(0))
+    view = ("view 0", R, -R @ c_w)
+    m = colmap_mods()
+    loaded, img, err = cs.ply_round_trip(m, trainer.state, path, view, 64,
+                                         48, 0.55 * 64)
+    assert err <= cs.PLY_ROUND_TRIP_ATOL
+    assert int(m["gm"].num_live(loaded)) == summary["num_gaussians"]
+    assert img.shape == (3, 48, 64) and bool(torch.isfinite(img).all())
+    p = trainer.state.params
+    fainter = trainer.state._replace(params=p._replace(
+        opacity_logit=p.opacity_logit - 1.0))
+    assert cs.ply_round_trip(m, fainter, path, view, 64, 48,
+                             0.55 * 64)[2] > 1e-3
+
+
+def test_settings_psnrs(colmap_run):
+    """settings_psnrs scores view 0 under the trainer's settings and with
+    each of view_result's in turn: four finite PSNRs, the centred principal
+    point (synth_colmap's is half a pixel off the centre) a different
+    one."""
+    _, trainer, data, _ = colmap_run
+    (kf0,) = [kf for kf in trainer.scene.keyframes.values()
+              if kf.img_filename == "frame_0000.png"]
+    target = torch.as_tensor(kf0.image)
+    by = cs.settings_psnrs(torch, colmap_mods(), trainer, kf0, target)
+    assert list(by) == ["trainer", "centred principal", "view_result caps",
+                        "SH 3"]
+    assert all(np.isfinite(list(by.values())))
+    assert by["centred principal"] != by["trainer"]

@@ -2,7 +2,8 @@
 steps (driven by train_chunk) on the same map, views and Adam state (JAX mode="pallas",
 interpreted), the port's GaussianTrainer end to end on the fixture of
 tests/test_trainer.py, checkpoints crossing between the two trainers, and
-the train_colmap CLI on the CPU."""
+the train_colmap CLI on the CPU, also through capacity growth (against the
+JAX app) and at the capacity ceiling."""
 import json
 
 import jax.numpy as jnp
@@ -284,17 +285,14 @@ def test_checkpoints_cross_load_both_ways(trained, tmp_path):
                                   np.asarray(jt.state.live))
 
 
-def test_train_colmap_cli_on_cpu(tmp_path):
-    """A tiny COLMAP set written with the port's writers and PIL, trained
-    for 5 iterations with --device cpu."""
+def write_colmap_set(root, model):
+    """A tiny COLMAP set of `model` seen from SHIFTS, written with the
+    port's writers and PIL under root/sparse/0 and root/images."""
     from PIL import Image
 
-    from photo_slam_tpu_torch.apps import train_colmap
-
-    model = gt_model(n=50, seed=1)
-    sparse = tmp_path / "data" / "sparse" / "0"
+    sparse = root / "sparse" / "0"
     sparse.mkdir(parents=True)
-    imgdir = tmp_path / "data" / "images"
+    imgdir = root / "images"
     imgdir.mkdir()
     images = {}
     for i, dx in enumerate(SHIFTS):
@@ -309,9 +307,18 @@ def test_train_colmap_cli_on_cpu(tmp_path):
     colmap.write_cameras_bin(sparse / "cameras.bin", {1: colmap.ColmapCamera(
         1, "PINHOLE", W, H, np.array([FX, FY, W / 2, H / 2]))})
     colmap.write_images_bin(sparse / "images.bin", images)
-    colmap.write_points3d_bin(sparse / "points3D.bin", np.arange(50),
-                              model[0], model[4])
+    colmap.write_points3d_bin(sparse / "points3D.bin",
+                              np.arange(len(model[0])), model[0], model[4])
+    return root
 
+
+def test_train_colmap_cli_on_cpu(tmp_path):
+    """A tiny COLMAP set written with the port's writers and PIL, trained
+    for 5 iterations with --device cpu."""
+    from photo_slam_tpu_torch.apps import train_colmap
+
+    model = gt_model(n=50, seed=1)
+    write_colmap_set(tmp_path / "data", model)
     out = tmp_path / "out"
     train_colmap.main(["--data", str(tmp_path / "data"), "--out", str(out),
                        "--iters", "5", "--log-every", "0", "--device", "cpu"])
@@ -326,3 +333,88 @@ def test_train_colmap_cli_on_cpu(tmp_path):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             train_colmap.main(["--data", str(tmp_path / "data"),
                                "--out", str(out)])
+
+
+def growth_config(cfg):
+    """A schedule that grows the capacity in 8 iterations from 50 points:
+    capacity 128 at the start (initial_capacity 64), densify at iterations
+    4, 6 and 8. At grad threshold 0 every live Gaussian is a candidate, so
+    each event doubles the live count whatever the gradients (the two
+    packages' renders agree only to rounding): 50 -> 100 -> 200 -> 400;
+    before the event at 6, 100 live and a quarter's headroom no longer fit
+    in 128 slots, and the capacity grows to round_capacity's smallest
+    bucket, 4096."""
+    cfg.renderer.initial_capacity = 64
+    cfg.opt.densify_from_iter = 2
+    cfg.opt.densification_interval = 2
+    cfg.opt.densify_until_iter = 10
+    cfg.opt.densify_grad_threshold = 0.0
+    cfg.opt.opacity_reset_interval = 0
+    cfg.mapper.do_gaus_pyramid_training = False
+    return cfg
+
+
+def test_train_colmap_grows_capacity_as_jax(tmp_path, monkeypatch):
+    """train_colmap's main on the CPU through a capacity growth, held
+    against the JAX app's main on the same COLMAP set (JAX in its CPU
+    "tiled" mode at 32 px tiles): the live count and the capacity after
+    the growth, and the summary's trace of them."""
+    from photo_slam_tpu.apps import train_colmap as japp
+    from photo_slam_tpu_torch.apps import train_colmap as tapp
+
+    data = write_colmap_set(tmp_path / "data", gt_model(n=50, seed=1))
+    jax_cfg = growth_config(JConfig())
+    jax_cfg.renderer.tile = 32
+    jax_trainers = []
+
+    class Recorded(japp.GaussianTrainer):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            jax_trainers.append(self)
+
+    monkeypatch.setattr(japp, "GaussianTrainer", Recorded)
+    monkeypatch.setattr(japp, "Config", lambda: jax_cfg)
+    port_cfg = growth_config(Config())
+    monkeypatch.setattr(tapp, "Config", lambda: port_cfg)
+    argv = ["--data", str(data), "--iters", "8", "--log-every", "2"]
+    japp.main(argv + ["--out", str(tmp_path / "jax")])
+    summary, port = tapp.main(argv + ["--out", str(tmp_path / "port"),
+                                      "--device", "cpu"])
+    (jax_t,) = jax_trainers
+    assert int(tgm.num_live(port.state)) == int(jgm.num_live(
+        jax_t.state)) == 400
+    assert port.state.capacity == jax_t.state.capacity == 4096
+    assert port.opt_state.m.xyz.shape[0] == port.state.live.shape[0] == 4096
+    assert summary == json.loads(
+        (tmp_path / "port" / "summary.json").read_text())
+    assert summary["num_gaussians"] == 400 and summary["capacity"] == 4096
+    assert summary["ceiling_reached_at"] is None
+    assert summary["num_dropped"] == 0 and summary["peak_memory_gib"] is None
+    assert [(r["iter"], r["live"], r["capacity"])
+            for r in summary["trace"]] == [(2, 50, 128), (4, 100, 128),
+                                           (6, 200, 4096), (8, 400, 4096)]
+    assert np.isfinite(summary["first_psnr"])
+    for p in port.state.params:
+        assert torch.isfinite(p).all()
+
+
+def test_train_colmap_drops_at_the_ceiling(tmp_path, monkeypatch):
+    """At max_capacity the map stops growing: the same schedule with the
+    ceiling at 256 grows to it (not to 4096) before the event at 6, and the
+    event at 8 approves only as many of its 200 candidates as there are
+    free slots (56, the largest accumulated gradients first), so every
+    approved copy places and none is counted as dropped."""
+    from photo_slam_tpu_torch.apps import train_colmap as tapp
+
+    data = write_colmap_set(tmp_path / "data", gt_model(n=50, seed=1))
+    cfg = growth_config(Config())
+    cfg.renderer.max_capacity = 256
+    monkeypatch.setattr(tapp, "Config", lambda: cfg)
+    tapp.main(["--data", str(data), "--out", str(tmp_path / "out"),
+               "--iters", "8", "--log-every", "2", "--device", "cpu"])
+    summary = json.loads((tmp_path / "out" / "summary.json").read_text())
+    assert summary["capacity"] == 256 and summary["ceiling_reached_at"] == 6
+    assert summary["num_gaussians"] == 256
+    assert summary["num_dropped"] == 0
+    assert [(r["iter"], r["live"], r["capacity"])
+            for r in summary["trace"]][2:] == [(6, 200, 256), (8, 256, 256)]
