@@ -127,6 +127,9 @@ def main(argv=None) -> tuple[dict, GaussianTrainer]:
         "max_capacity": cfg.renderer.max_capacity,
         "ceiling_reached_at": met.ceiling_reached_at,
         "num_dropped": trainer.metrics.num_dropped,
+        # Captured step graphs (mapper/trainer.StepGraphs): one a pyramid
+        # size, SH degree and capacity the run met.
+        "graph_captures": trainer.graphs.captures,
         "peak_memory_gib": (torch.cuda.max_memory_allocated(device) / 2**30
                             if device.type == "cuda" else None),
         "trace": met.trace,

@@ -3,7 +3,8 @@
 Counterpart of photo_slam_tpu/apps/view_result.py (reference:
 examples/view_result.cpp:43-69 + GaussianMapper::loadPly,
 src/gaussian_mapper.cpp:1982-2055): renders a sweep of poses (or the poses
-in a cameras.json) on one device through the kernel render path.
+in a cameras.json) on one device through the kernel render path, each
+view replayed from one captured graph (ops/render.render_jit).
 
 Usage:
   python -m photo_slam_tpu_torch.apps.view_result --ply <point_cloud.ply> \
@@ -23,7 +24,7 @@ from photo_slam_tpu_torch.config import Config
 from photo_slam_tpu_torch.io.images import save_image_chw
 from photo_slam_tpu_torch.models import gaussian_model as gm
 from photo_slam_tpu_torch.ops.camera_math import build_camera_matrices
-from photo_slam_tpu_torch.ops.render import RenderSettings, render
+from photo_slam_tpu_torch.ops.render import RenderSettings, render_jit
 
 
 def load_state(path, cfg: Config, *, device) -> tuple[gm.GaussianState, int]:
@@ -70,8 +71,8 @@ def render_views(state: gm.GaussianState, sh_degree: int, views,
     for name, R, t in views:
         mats = build_camera_matrices(R, t, 0.01, 100.0, fovx, fovy,
                                      device=device)
-        res = render(state.params.xyz, scales, quats, opac, mats, settings,
-                     bg, shs=shs, live_mask=state.live)
+        res = render_jit(state.params.xyz, scales, quats, opac, mats,
+                         settings, bg, shs=shs, live_mask=state.live)
         images.append((str(name), res.image))
     return images
 

@@ -53,7 +53,7 @@ from photo_slam_tpu_torch.models.scene import Scene
 from photo_slam_tpu_torch.ops import depth_ops, stereo
 from photo_slam_tpu_torch.ops.camera_math import build_camera_matrices
 from photo_slam_tpu_torch.ops.render import (RenderSettings, principal_for,
-                                             render)
+                                             render_jit)
 from photo_slam_tpu_torch.utils.math import (quat_to_rotmat,
                                              rotmat_to_quat_numpy,
                                              se3_inverse, se3_matrix)
@@ -469,11 +469,12 @@ class GaussianMapper:
                          profiler: Optional[Profiler] = None) -> np.ndarray:
         """Viewer render service (reference:
         src/gaussian_mapper.cpp:1521-1569): renders the current map on its
-        device through the kernel path; returns a [3, height, width] host
-        array.
+        device through the kernel path, replayed from a captured graph per
+        ladder size (render_jit); returns a [3, height, width] host array.
 
-        It holds render_lock while it reads the map and enqueues the render
-        on the mapper's stream, so the render sees no half-written map;
+        It holds render_lock while it reads the map and enqueues the
+        render's replay on the mapper's stream, so the render sees no
+        half-written map;
         the wait for the device and the copy to the host come after the
         lock is released (stream order keeps the render ahead of the
         mapper's later writes). `profiler` times the stages as spans:
@@ -517,10 +518,10 @@ class GaussianMapper:
                     mode="pallas")
                 state = self.trainer.state
                 scales, quats, opac = gm.activated(state.params)
-                res = render(state.params.xyz, scales, quats, opac, mats,
-                             settings, self.trainer.bg_color,
-                             shs=gm.sh_features(state.params),
-                             live_mask=state.live)
+                res = render_jit(state.params.xyz, scales, quats, opac,
+                                 mats, settings, self.trainer.bg_color,
+                                 shs=gm.sh_features(state.params),
+                                 live_mask=state.live)
                 img = res.image[:, y0:y0 + height, x0:x0 + width]
                 done = None
                 if self._stream is not None:

@@ -5,7 +5,8 @@ reference's renderAndRecordAllKeyframes (reference:
 src/gaussian_mapper.cpp:1571-1656), per-keyframe metric text files plus
 optional rendered / ground-truth / loss images under the same names, so the
 Photo-SLAM-eval tooling runs unchanged. Renders go through the kernel path,
-overflow-exact (cfg.renderer.record_overflow_passes continuation passes).
+overflow-exact (cfg.renderer.record_overflow_passes continuation passes),
+replayed from captured graphs (ops/render.render_jit).
 """
 from __future__ import annotations
 
@@ -18,7 +19,7 @@ import torch
 from photo_slam_tpu_torch.models import gaussian_model as gm
 from photo_slam_tpu_torch.ops import losses
 from photo_slam_tpu_torch.ops.render import (RenderSettings, principal_for,
-                                             render)
+                                             render_jit)
 
 
 def render_keyframe(mapper, kf) -> torch.Tensor:
@@ -43,10 +44,10 @@ def render_keyframe(mapper, kf) -> torch.Tensor:
     state = mapper.trainer.state
     scales, quats, opac = gm.activated(state.params)
     with torch.no_grad():
-        return render(state.params.xyz, scales, quats, opac, kf.matrices,
-                      settings, mapper.trainer.bg_color,
-                      shs=gm.sh_features(state.params),
-                      live_mask=state.live).image
+        return render_jit(state.params.xyz, scales, quats, opac,
+                          kf.matrices, settings, mapper.trainer.bg_color,
+                          shs=gm.sh_features(state.params),
+                          live_mask=state.live).image
 
 
 def render_and_record_keyframes(mapper, out_dir, suffix: str = "") -> dict:

@@ -19,8 +19,15 @@ functions; capacity growth re-buckets on the host.
     densify and prune, the opacity reset, insertion and capacity growth.
     A viewer thread that renders under it never sees a torn map.
 
-PyTorch runs eagerly, so train_chunk is a Python loop over the views, and
-the port always renders with the kernel path (mode "pallas").
+JAX's jit is StepGraphs here: train_step, train_chunk and the
+single-device B-view step captured as CUDA graphs per settings and shape,
+replayed with the map and its Adam state donated (utils/graphs.py). The
+functions below dispatch op by op; they are what the graphs capture, and
+what runs on the CPU. train_chunk replays one step's graph num_steps
+times, the view index a device tensor the step advances. Densify, the
+opacity reset and the map transforms stay op by op (one call per 100
+iterations or per mapping operation). The port always renders with the
+kernel path (mode "pallas").
 """
 from __future__ import annotations
 
@@ -44,9 +51,11 @@ from photo_slam_tpu_torch.models.keyframe import Keyframe
 from photo_slam_tpu_torch.models.scene import Scene
 from photo_slam_tpu_torch.ops import losses
 from photo_slam_tpu_torch.ops.camera_math import CameraMatrices
-from photo_slam_tpu_torch.ops.render import (RenderSettings, principal_for,
-                                             render)
+from photo_slam_tpu_torch.ops.render import (RenderSettings,
+                                             drop_render_graphs,
+                                             principal_for, render)
 from photo_slam_tpu_torch.parallel.sharding import train_step_batched
+from photo_slam_tpu_torch.utils.graphs import GraphCache, spec
 from photo_slam_tpu_torch.utils.profiling import Profiler
 
 
@@ -111,10 +120,13 @@ def train_step(
     settings: RenderSettings,
     lock=None,
 ):
-    """One optimization iteration (render / loss / grad / stats / Adam).
-    The map's parameters and the Adam moments are updated in place, with
-    `lock` (a context manager, e.g. the mapper's render lock) held around
-    those writes. Returns (state, opt_state, metrics of 0-d tensors)."""
+    """One optimization iteration (render / loss / grad / stats / Adam),
+    dispatched op by op: the function StepGraphs captures (JAX's
+    _train_step_impl). The map's parameters, its densification statistics
+    and the Adam moments and step count are updated in place, with `lock`
+    (a context manager, e.g. the mapper's render lock) held around those
+    writes. `lrs` holds floats or 0-d tensors (optim.lr_tensors). Returns
+    (state, opt_state, metrics of 0-d tensors)."""
     live = state.live
     params = gm.GaussianParams(*(p.detach().requires_grad_(True)
                                  for p in state.params))
@@ -132,12 +144,11 @@ def train_step(
 
     with torch.no_grad(), (lock or contextlib.nullcontext()):
         # Densification statistics (reference: src/gaussian_mapper.cpp:703-719).
-        state = dz.update_max_radii(state, res.radii, res.visible)
-        state = dz.add_densification_stats(state, grads[-1], res.visible,
-                                           settings.width, settings.height)
-        new_params, opt_state = optim.adam_step(
-            state.params, gm.GaussianParams(*grads[:-1]), opt_state, lrs,
-            live)
+        dz.update_max_radii_(state, res.radii, res.visible)
+        dz.add_densification_stats_(state, grads[-1], res.visible,
+                                    settings.width, settings.height)
+        optim.adam_step(state.params, gm.GaussianParams(*grads[:-1]),
+                        opt_state, lrs, live)
         metrics = {
             "loss": loss.detach(),
             "psnr": losses.psnr(masked.detach(), gt_image),
@@ -145,7 +156,41 @@ def train_step(
             "binning_clipped": res.num_clipped,
             "binning_overflow": res.num_overflow,
         }
-    return state._replace(params=new_params), opt_state, metrics
+    return state, opt_state, metrics
+
+
+STEP_METRICS = ("loss", "psnr", "num_visible", "binning_clipped",
+                "binning_overflow")
+
+
+def chunk_buffers(length: int, device) -> dict:
+    """A train_chunk's metric buffers: [length] per metric of train_step."""
+    return {k: torch.zeros(length, dtype=torch.float32 if k in (
+        "loss", "psnr") else torch.int32, device=device)
+            for k in STEP_METRICS}
+
+
+def chunk_step(state, opt_state, cams: CameraMatrices,
+               gt_images: torch.Tensor, mask: torch.Tensor,
+               lrs: optim.LearningRates, bg_color: torch.Tensor,
+               lambda_dssim: float, settings: RenderSettings,
+               view: torch.Tensor, j: torch.Tensor, buffers: dict) -> tuple:
+    """One step of train_chunk, with nothing read from the host: the view
+    index `view` and the step index `j` ([1] int64 on the device) pick the
+    view of the ring (cams [V, ...], gt_images [V, 3, H, W]) and the slot
+    of each metric's buffer (chunk_buffers) that the step's metric is
+    written to, then view = (view + 1) % V and j += 1, in place. Returns
+    ()."""
+    cam = CameraMatrices(*(torch.index_select(x, 0, view)[0] for x in cams))
+    gt = torch.index_select(gt_images, 0, view)[0]
+    _, _, metrics = train_step(state, opt_state, cam, gt, mask, lrs,
+                               bg_color, lambda_dssim, settings)
+    with torch.no_grad():
+        for k, buf in buffers.items():
+            buf.index_copy_(0, j, metrics[k].reshape(1).to(buf.dtype))
+        view.copy_(torch.remainder(view + 1, gt_images.shape[0]))
+        j.add_(1)
+    return ()
 
 
 def train_chunk(state, opt_state, cams: CameraMatrices,
@@ -155,19 +200,193 @@ def train_chunk(state, opt_state, cams: CameraMatrices,
                 settings: RenderSettings, num_steps: int):
     """`num_steps` sequential train steps on the views
     (start_iter + j) % V of a resident view ring: cams with a leading view
-    axis [V, ...], gt_images [V, 3, H, W]. Returns (state, opt_state,
-    metrics) with each metric stacked over the chunk ([num_steps])."""
-    v_count = gt_images.shape[0]
-    history = []
-    for j in range(num_steps):
-        v = (start_iter + j) % v_count
-        cam = CameraMatrices(*(x[v] for x in cams))
-        state, opt_state, m = train_step(state, opt_state, cam,
-                                         gt_images[v], mask, lrs, bg_color,
-                                         lambda_dssim, settings)
-        history.append(m)
-    metrics = {k: torch.stack([m[k] for m in history]) for k in history[0]}
-    return state, opt_state, metrics
+    axis [V, ...], gt_images [V, 3, H, W]; the counterpart of JAX's scanned
+    train_chunk, dispatched op by op (StepGraphs.train_chunk replays it
+    from a graph). The view index is a device tensor advanced by each step
+    (chunk_step). Returns (state, opt_state, metrics) with each metric
+    stacked over the chunk ([num_steps])."""
+    dev = state.live.device
+    view = torch.full((1,), start_iter % gt_images.shape[0],
+                      dtype=torch.int64, device=dev)
+    j = torch.zeros(1, dtype=torch.int64, device=dev)
+    buffers = chunk_buffers(num_steps, dev)
+    for _ in range(num_steps):
+        chunk_step(state, opt_state, cams, gt_images, mask, lrs, bg_color,
+                   lambda_dssim, settings, view, j, buffers)
+    return state, opt_state, buffers
+
+
+def _tensors(state: gm.GaussianState, opt_state: optim.AdamState) -> list:
+    return [*state.params, *state[1:], *opt_state.m, *opt_state.v,
+            opt_state.step]
+
+
+def _from_tensors(ts) -> tuple:
+    n = len(gm.GaussianParams._fields)
+    state = gm.GaussianState(gm.GaussianParams(*ts[:n]),
+                             *ts[n:n + len(STATE_FIELDS)])
+    k = n + len(STATE_FIELDS)
+    opt = optim.AdamState(m=gm.GaussianParams(*ts[k:k + n]),
+                          v=gm.GaussianParams(*ts[k + n:k + 2 * n]),
+                          step=ts[k + 2 * n])
+    return state, opt
+
+
+class StepGraphs:
+    """The train step, train_chunk and the single-device B-view step of one
+    map as captured CUDA graphs (utils/graphs.py), replayed: the
+    counterpart of JAX's jitted train_step, train_chunk and
+    train_step_batched with `state` and `opt_state` donated.
+
+    The graphs read and write the map and its Adam state where they lie:
+    the resident tensors. The first step adopts the tensors it is given
+    (a fresh copy where two of them share memory); a later step given
+    other tensors of the same shapes (after densify, the opacity reset,
+    insertion, a checkpoint or PLY load, which make new tensors) copies
+    them into the resident ones, once; tensors of other shapes (a capacity
+    growth) are adopted and the graphs of the old ones dropped (`drop`).
+    Each call returns the resident state: the tensors passed in are
+    donated and must not be used again. The graphs are keyed by the render
+    settings (so a new image size, pyramid level or SH degree captures
+    anew, as JAX recompiles), lambda and the input shapes. The learning
+    rates are read from 0-d device tensors refreshed before each replay.
+    The metrics are the graph's static outputs: whoever keeps them across
+    replays clones them.
+
+    On the CPU the same functions run directly (the plain route)."""
+
+    def __init__(self):
+        self.cache = GraphCache()
+        self._resident: Optional[list] = None
+        self._lrs: Optional[optim.LearningRates] = None
+        self._index: Optional[tuple] = None   # train_chunk's (view, j)
+        self._buffers: dict = {}   # train_chunk's metric buffers by length
+
+    @property
+    def captures(self) -> int:
+        return self.cache.captures
+
+    def drop(self) -> None:
+        """Drop the graphs and the resident tensors (a capacity growth)."""
+        self.cache.clear()
+        self._resident = self._index = None
+        self._buffers = {}
+
+    def _donate(self, state, opt_state, lrs) -> tuple:
+        """(state, opt_state) on the resident tensors, which now hold the
+        given ones, with the learning-rate tensors set to `lrs`."""
+        ts = _tensors(state, opt_state)
+        res = self._resident
+        if res is None or [spec(x) for x in res] != [spec(x) for x in ts]:
+            self.drop()
+            # In-place writes through two names of one memory would be
+            # lost: tensors that share memory are adopted as copies.
+            ptrs = [x.data_ptr() for x in ts if x.numel()]
+            res = [x.clone() for x in ts] if len(set(ptrs)) < len(ptrs) \
+                else list(ts)
+            self._resident = res
+            self._lrs = optim.lr_tensors(ts[0].device)
+        elif any(a is not b for a, b in zip(res, ts)):
+            with torch.no_grad():
+                for a, b in zip(res, ts):
+                    if a is not b:
+                        a.copy_(b)
+        optim.set_lrs(self._lrs, lrs)
+        return _from_tensors(res)
+
+    def _replay(self, key, body, cams, fresh, extra=(), replays=1) -> tuple:
+        """body(cams, *fresh, state, opt_state, lrs, *extra) -> a tuple of
+        tensors, replayed from the graph of `key` on the resident map and
+        learning rates: `cams` (CameraMatrices) and `fresh` are copied into
+        the graph's buffers, `extra` tensors are read where they lie."""
+        n, k = len(self._resident), 3 + len(fresh)
+
+        def fn(*xs):
+            st, op = _from_tensors(xs[k:k + n])
+            lrs = optim.LearningRates(*xs[k + n:k + n + 6])
+            return body(CameraMatrices(*xs[:3]), *xs[3:k], st, op, lrs,
+                        *xs[k + n + 6:])
+
+        return self.cache.run(key, fn, (*cams, *fresh),
+                              (*self._resident, *self._lrs, *extra),
+                              replays=replays)
+
+    def train_step(self, state, opt_state, cam: CameraMatrices,
+                   gt_image, mask, lrs: optim.LearningRates, bg_color,
+                   lambda_dssim: float, settings: RenderSettings, lock=None):
+        """train_step from its graph. `lock` is held around the resident
+        copy and the replay's enqueue: the whole step's writes, where the
+        eager step holds it around the writes only."""
+        if state.live.device.type != "cuda":
+            return train_step(state, opt_state, cam, gt_image, mask, lrs,
+                              bg_color, lambda_dssim, settings, lock=lock)
+
+        def body(cam, gt, mask, bg, st, op, lrs):
+            met = train_step(st, op, cam, gt, mask, lrs, bg, lambda_dssim,
+                             settings)[2]
+            return tuple(met[k] for k in STEP_METRICS)
+
+        with lock or contextlib.nullcontext():
+            state, opt_state = self._donate(state, opt_state, lrs)
+            out = self._replay(("train_step", settings, lambda_dssim), body,
+                               cam, (gt_image, mask, bg_color))
+        return state, opt_state, dict(zip(STEP_METRICS, out))
+
+    def train_chunk(self, state, opt_state, cams: CameraMatrices, gt_images,
+                    mask, lrs: optim.LearningRates, bg_color,
+                    lambda_dssim: float, start_iter: int,
+                    settings: RenderSettings, num_steps: int):
+        """train_chunk from the graph of chunk_step, replayed num_steps
+        times: the host launches the replays and reads nothing back."""
+        if state.live.device.type != "cuda":
+            return train_chunk(state, opt_state, cams, gt_images, mask, lrs,
+                               bg_color, lambda_dssim, start_iter, settings,
+                               num_steps)
+        state, opt_state = self._donate(state, opt_state, lrs)
+        dev = state.live.device
+        if self._index is None:
+            self._index = tuple(torch.zeros(1, dtype=torch.int64,
+                                            device=dev) for _ in range(2))
+        bufs = self._buffers.get(num_steps)
+        if bufs is None:
+            bufs = self._buffers[num_steps] = chunk_buffers(num_steps, dev)
+        view, j = self._index
+        view.fill_(start_iter % gt_images.shape[0])
+        j.zero_()
+
+        def body(cams, gts, mask, bg, st, op, lrs, view, j, *metric_bufs):
+            return chunk_step(st, op, cams, gts, mask, lrs, bg,
+                              lambda_dssim, settings, view, j,
+                              dict(zip(STEP_METRICS, metric_bufs)))
+
+        self._replay(("train_chunk", settings, lambda_dssim), body, cams,
+                     (gt_images, mask, bg_color),
+                     (view, j, *(bufs[k] for k in STEP_METRICS)),
+                     replays=num_steps)
+        return state, opt_state, {k: bufs[k].clone() for k in STEP_METRICS}
+
+    def train_step_batched(self, state, opt_state, cams: CameraMatrices,
+                           gt_images, masks, lrs: optim.LearningRates,
+                           bg_color, lambda_dssim: float,
+                           settings: RenderSettings, lock=None):
+        """parallel/sharding.train_step_batched (group None) from its
+        graph; `lock` as in train_step."""
+        if state.live.device.type != "cuda":
+            return train_step_batched(state, opt_state, cams, gt_images,
+                                      masks, lrs, bg_color, lambda_dssim,
+                                      settings, lock=lock)
+
+        def body(cams, gts, masks, bg, st, op, lrs):
+            met = train_step_batched(st, op, cams, gts, masks, lrs, bg,
+                                     lambda_dssim, settings)[2]
+            return (met["loss"], met["num_visible"])
+
+        with lock or contextlib.nullcontext():
+            state, opt_state = self._donate(state, opt_state, lrs)
+            out = self._replay(("train_step_batched", settings,
+                                lambda_dssim), body, cams,
+                               (gt_images, masks, bg_color))
+        return state, opt_state, dict(zip(("loss", "num_visible"), out))
 
 
 def densify_step(state, opt_state, noise: torch.Tensor, extent, *,
@@ -231,6 +450,8 @@ class GaussianTrainer:
         self.metrics = TrainerMetrics()
         self.state_lock = threading.RLock()
         self.profiler = Profiler()
+        # The step's captured graphs and the map they donate.
+        self.graphs = StepGraphs()
         # Online mode: per-keyframe use counts drive the position LR
         # schedule (reference: src/gaussian_mapper.cpp:661-669).
         self.online_lr = False
@@ -337,6 +558,11 @@ class GaussianTrainer:
             if new_cap <= cap:
                 return
             self.state = gm.grow_capacity(self.state, new_cap)
+            # The step and render graphs of the old capacity and their
+            # copies of the map go; the next step and render capture at the
+            # new one (JAX recompiles here too).
+            self.graphs.drop()
+            drop_render_graphs(cap)
 
             def pad(moments):
                 out = []
@@ -463,7 +689,7 @@ class GaussianTrainer:
         height, width = gt.shape[1], gt.shape[2]
         mask = self._device_mask(kf, height)
 
-        self.state, self.opt_state, metrics = train_step(
+        self.state, self.opt_state, metrics = self.graphs.train_step(
             self.state, self.opt_state, kf.matrices, gt, mask,
             self._current_lrs(kf), self.bg_color, self.cfg.opt.lambda_dssim,
             self._settings(kf.camera, width, height), lock=self._writing())
@@ -494,7 +720,7 @@ class GaussianTrainer:
         gts = torch.stack([self._device_gt(k, len(k.pyramid)) for k in kfs])
         masks = torch.stack([self._device_mask(k, k.camera.height)
                              for k in kfs])
-        self.state, self.opt_state, metrics = train_step_batched(
+        self.state, self.opt_state, metrics = self.graphs.train_step_batched(
             self.state, self.opt_state, cams, gts, masks,
             self._current_lrs(kfs[0]), self.bg_color,
             self.cfg.opt.lambda_dssim,

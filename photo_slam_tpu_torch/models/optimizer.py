@@ -26,7 +26,9 @@ GROUPS = GaussianParams._fields
 
 
 class LearningRates(NamedTuple):
-    """Per-group learning rates (Python floats)."""
+    """Per-group learning rates: Python floats, or 0-d float32 tensors on
+    the map's device holding the same values (lr_tensors), which a captured
+    step reads at each replay."""
 
     xyz: float
     features_dc: float
@@ -48,6 +50,23 @@ class LearningRates(NamedTuple):
             log_scales=float(f(scaling_lr)),
             quats=float(f(rotation_lr)),
         )
+
+
+def lr_tensors(device) -> LearningRates:
+    """0-d float32 tensors on `device`, one per group, for set_lrs to fill:
+    the learning rates a captured train step reads, as JAX passes `lrs` as
+    traced arrays so that its jit does not recompile for them."""
+    return LearningRates(*(torch.zeros((), dtype=torch.float32,
+                                       device=device)
+                           for _ in LearningRates._fields))
+
+
+def set_lrs(dst: LearningRates, lrs: LearningRates) -> None:
+    """Fill the tensors of `dst` (lr_tensors) with the float learning rates
+    `lrs`, float32 as a Python float times a float32 tensor rounds them.
+    Each write is a fill kernel: nothing waits for the device."""
+    for t, x in zip(dst, lrs):
+        t.fill_(x)
 
 
 class AdamState(NamedTuple):
@@ -86,11 +105,13 @@ def adam_step(params: GaussianParams, grads: GaussianParams,
               opt_state: AdamState, lrs: LearningRates,
               live: torch.Tensor) -> tuple[GaussianParams, AdamState]:
     """One Adam update over all live Gaussians, IN PLACE: the parameter and
-    moment tensors are overwritten (the JAX step donates the same buffers)
-    and returned. Dead slots are frozen; their gradients are zeroed first,
-    which also guards against NaN poisoning. The bias corrections are
-    float32, as in JAX."""
-    step = opt_state.step + 1
+    moment tensors and the step count are overwritten (the JAX step donates
+    the same buffers) and returned. Dead slots are frozen; their gradients
+    are zeroed first, which also guards against NaN poisoning. The bias
+    corrections are float32, as in JAX. `lrs` holds floats or 0-d float32
+    tensors (lr_tensors); both give the same update."""
+    step = opt_state.step
+    step.add_(1)
     t = step.to(torch.float32)
     bc1 = 1.0 - torch.pow(BETA1, t)
     bc2 = 1.0 - torch.pow(BETA2, t)

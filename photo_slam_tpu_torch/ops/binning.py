@@ -23,6 +23,7 @@ from typing import NamedTuple
 import torch
 
 from photo_slam_tpu_torch import kernels
+from photo_slam_tpu_torch.utils import graphs
 
 TILE = 16  # tile edge in pixels (reference: cuda_rasterizer/config.h BLOCK_X/Y)
 
@@ -53,7 +54,7 @@ def window_gather(sorted_entries: torch.Tensor, starts: torch.Tensor,
     Counterpart of photo_slam_tpu/ops/binning.py::_window_gather_pallas (K3).
     On a CUDA tensor it launches csrc/window_gather.cu (or raises); on a CPU
     tensor it runs window_gather_plain. `window_gather.launches` counts
-    kernel launches.
+    kernel launches, a captured graph's at each replay (utils/graphs.py).
     """
     dev = sorted_entries.device
     if dev.type == "cpu":
@@ -83,7 +84,7 @@ def window_gather(sorted_entries: torch.Tensor, starts: torch.Tensor,
                    starts.data_ptr(),
                    None if counts is None else counts.data_ptr(), num_tiles,
                    max_per_tile, out.data_ptr())
-    window_gather.launches += 1
+    graphs.count_launch(window_gather, dev)
     return out
 
 

@@ -19,6 +19,7 @@ from __future__ import annotations
 import torch
 
 from photo_slam_tpu_torch import kernels
+from photo_slam_tpu_torch.utils import graphs
 
 TILE_PS = 32          # pixel tile edge: 32*32 = 1024 px
 PIX_SUB = 8
@@ -143,7 +144,7 @@ def blend_fwd(data_tiles: torch.Tensor, counts: torch.Tensor,
 
     On a CUDA tensor it launches csrc/blend_fwd.cu (or raises); on a CPU
     tensor it runs blend_fwd_plain. `blend_fwd.launches` counts kernel
-    launches.
+    launches, a captured graph's at each replay (utils/graphs.py).
     """
     if data_tiles.device.type == "cpu":
         return blend_fwd_plain(data_tiles, counts, tiles_x, num_tiles,
@@ -160,7 +161,7 @@ def blend_fwd(data_tiles: torch.Tensor, counts: torch.Tensor,
                    None if tile_ids is None else tile_ids.data_ptr(), nb,
                    k_max, tiles_x, color.data_ptr(), final_t.data_ptr(),
                    n_contrib.data_ptr())
-    blend_fwd.launches += 1
+    graphs.count_launch(blend_fwd, dev)
     return color, final_t, n_contrib
 
 
@@ -317,7 +318,7 @@ def blend_bwd(data_tiles: torch.Tensor, counts: torch.Tensor,
 
     On a CUDA tensor it launches csrc/blend_bwd.cu (or raises); on a CPU
     tensor it runs blend_bwd_plain. `blend_bwd.launches` counts kernel
-    launches.
+    launches, a captured graph's at each replay (utils/graphs.py).
     """
     if data_tiles.device.type == "cpu":
         return blend_bwd_plain(data_tiles, counts, final_t, n_contrib,
@@ -337,7 +338,7 @@ def blend_bwd(data_tiles: torch.Tensor, counts: torch.Tensor,
                    final_t.data_ptr(), n_contrib.data_ptr(),
                    g_color.data_ptr(), g_t.data_ptr(), nb, k_max, tiles_x,
                    d_data.data_ptr())
-    blend_bwd.launches += 1
+    graphs.count_launch(blend_bwd, dev)
     return d_data
 
 

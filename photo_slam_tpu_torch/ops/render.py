@@ -6,10 +6,12 @@ attributes, differentiable with respect to means3d, scales, quats,
 opacities, shs / colors_precomp and means2d_offset. The reference's
 zero `screenspace_points` tensor with retain_grad (the densification
 statistic) is the explicit `means2d_offset` argument: pass zeros and take
-the gradient with respect to it. PyTorch runs eagerly, so there is no
-render_jit; callers call `render` directly. mode="pallas" is the
-hand-written kernel path (ops/tiled.render_pallas), mode="dense" the exact
-oracle (ops/dense.py).
+the gradient with respect to it. `render` dispatches op by op;
+`render_jit` replays it from a CUDA graph captured per settings and input
+shape (utils/graphs.py), the counterpart of JAX's jitted render, and the
+serving paths (the recorder, render_from_pose and so the viewer,
+view_result) go through it. mode="pallas" is the hand-written kernel path
+(ops/tiled.render_pallas), mode="dense" the exact oracle (ops/dense.py).
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ from photo_slam_tpu_torch.ops import dense as dense_mod
 from photo_slam_tpu_torch.ops import preprocess as prep_mod
 from photo_slam_tpu_torch.ops import tiled as tiled_mod
 from photo_slam_tpu_torch.ops.camera_math import CameraMatrices
+from photo_slam_tpu_torch.utils.graphs import GraphCache
 
 
 class RenderSettings(NamedTuple):
@@ -141,3 +144,57 @@ def render(
         num_overflow_tiles=over_tiles,
         max_tile_depth=max_depth,
     )
+
+
+# The serving renders' graphs: one owner, so one memory pool, shared by
+# every thread that renders (the cache serializes their replays).
+RENDER_GRAPHS = GraphCache()
+
+
+def drop_render_graphs(rows: int) -> None:
+    """Drop the render graphs of maps of `rows` Gaussians, and their input
+    buffers (a copy of such a map): a map that grows past `rows` calls
+    this, as JAX's cache stops using the old shape's programs."""
+    RENDER_GRAPHS.evict(lambda e: e.fresh[0].shape[0] == rows)
+
+
+def render_jit(means3d, scales, quats, opacities, cam: CameraMatrices,
+               settings: RenderSettings, bg_color, shs=None,
+               colors_precomp=None, live_mask=None) -> RenderResult:
+    """`render` replayed from a CUDA graph (RENDER_GRAPHS) keyed like the
+    JAX package's _jitted_render (the settings and which of shs,
+    colors_precomp and live_mask are given) plus the inputs' shapes and
+    device: a new image size, SH degree or capacity captures anew. The
+    inputs are copied into the graph's buffers; the result's tensors are
+    clones, so a later replay does not overwrite them. Not differentiable.
+    Serving paths go through this (photo_slam_tpu/ops/render.py:206-215).
+    On CPU tensors it calls render directly."""
+    key, fresh = render_jit_args(means3d, scales, quats, opacities, cam,
+                                 settings, bg_color, shs, colors_precomp,
+                                 live_mask)
+    flags = key[2]
+
+    def fn(means3d, scales, quats, opacities, view, proj, center, bg, *rest):
+        rest = iter(rest)
+        opt = [next(rest) if f else None for f in flags]
+        res = render(means3d, scales, quats, opacities,
+                     CameraMatrices(view, proj, center), settings, bg,
+                     shs=opt[0], colors_precomp=opt[1], live_mask=opt[2])
+        return tuple(res)
+
+    with torch.no_grad():
+        out = RENDER_GRAPHS.run(key, fn, fresh, clone=True)
+    return RenderResult(*out)
+
+
+def render_jit_args(means3d, scales, quats, opacities, cam, settings,
+                    bg_color, shs=None, colors_precomp=None,
+                    live_mask=None) -> tuple:
+    """(key, fresh inputs) of a render_jit call: the key is ("render",
+    settings, which of shs, colors_precomp, live_mask are given); the
+    graph cache adds the inputs' shapes and device (GraphCache.key_of)."""
+    flags = (shs is not None, colors_precomp is not None,
+             live_mask is not None)
+    given = [x for x in (shs, colors_precomp, live_mask) if x is not None]
+    return (("render", settings, flags),
+            (means3d, scales, quats, opacities, *cam, bg_color, *given))

@@ -23,6 +23,7 @@ from photo_slam_tpu_torch.ops.binning import (bin_gaussians, tile_grid,
 from photo_slam_tpu_torch.ops.blend import FEAT, TILE_PS, pallas_blend
 from photo_slam_tpu_torch.ops.dense import RenderOutput
 from photo_slam_tpu_torch.ops.preprocess import Preprocessed, tight_extents
+from photo_slam_tpu_torch.utils import graphs
 
 
 GRAD_LANES = 9  # packed lanes that carry gradient (ops/blend.py layout)
@@ -84,8 +85,11 @@ def entry_sum(g: torch.Tensor, lists: torch.Tensor, k_dup: int,
     On a CUDA tensor it launches csrc/entry_sum.cu (or raises): the pointer's
     fill, its scatter and the sum, one launcher. A repeated or out-of-range
     id adds one to the device int32 counter `entry_sum.repeats[index]` of
-    the card (made at first use, never read back here). On a CPU tensor it
-    runs entry_sum_plain. `entry_sum.launches` counts kernel launches."""
+    the card (made at its first use outside a graph capture, never read
+    back here: made inside a capture it would be the graph's memory, zeroed
+    at every replay). On a CPU tensor it runs entry_sum_plain.
+    `entry_sum.launches` counts kernel launches, a captured graph's at each
+    replay (utils/graphs.py)."""
     dev = g.device
     if dev.type == "cpu":
         return entry_sum_plain(g, lists, k_dup, n)
@@ -109,6 +113,9 @@ def entry_sum(g: torch.Tensor, lists: torch.Tensor, k_dup: int,
                          f"{g.shape[0]} must keep ids and positions in int32")
     repeats = entry_sum.repeats.get(dev.index)
     if repeats is None:
+        if graphs.is_capturing(dev):
+            raise RuntimeError("entry_sum: the repeats counter of "
+                               f"{dev} must be made before a graph capture")
         repeats = entry_sum.repeats.setdefault(
             dev.index, torch.zeros(1, dtype=torch.int32, device=dev))
     ptr = torch.empty(n * k_dup, dtype=torch.int32, device=dev)
@@ -116,7 +123,7 @@ def entry_sum(g: torch.Tensor, lists: torch.Tensor, k_dup: int,
     kernels.launch("entry_sum", dev, g.data_ptr(), lists.data_ptr(),
                    g.shape[0], n, k_dup, g.shape[1], ptr.data_ptr(),
                    repeats.data_ptr(), out.data_ptr())
-    entry_sum.launches += 1
+    graphs.count_launch(entry_sum, dev)
     return out
 
 

@@ -148,10 +148,13 @@ def train_step_batched(
 ):
     """One multi-view optimization step (B views, mean gradient), the B
     views one after the other on the state's device, then one shared Adam
-    update written in place. `lock` (a context manager, e.g. the mapper's
-    render lock) is held around the state writes: the densification
-    statistics and Adam. Returns (state, opt_state, {"loss", "num_visible"})
-    with 0-d tensors.
+    update, the densification statistics and the Adam state written in
+    place. `lock` (a context manager, e.g. the mapper's render lock) is
+    held around the state writes: the densification statistics and Adam.
+    Returns (state, opt_state, {"loss", "num_visible"}) with 0-d tensors.
+    Without a group this is the function mapper/trainer.StepGraphs
+    captures as a CUDA graph; with one it runs op by op (a gloo group
+    cannot be captured).
 
     With a process group of n ranks, each rank passes its own B/n views
     (shard_batch_args) and its replica of the map (replicate): the sums
@@ -179,12 +182,11 @@ def train_step_batched(
         grads = gm.GaussianParams(*(g * inv_b for g in grads_s))
         # Stats: visible in ANY view, radii the max; the view-space
         # gradient accumulates the batch mean once, like the loss gradient.
-        state = dz.update_max_radii(state, radii, visible)
-        state = dz.add_densification_stats(state, g2d_s * inv_b, visible,
-                                           settings.width, settings.height)
-        params, opt_state = optim.adam_step(state.params, grads, opt_state,
-                                            lrs, state.live)
-    return state._replace(params=params), opt_state, {
+        dz.update_max_radii_(state, radii, visible)
+        dz.add_densification_stats_(state, g2d_s * inv_b, visible,
+                                    settings.width, settings.height)
+        optim.adam_step(state.params, grads, opt_state, lrs, state.live)
+    return state, opt_state, {
         "loss": loss_s * inv_b,
         "num_visible": visible.sum(dtype=torch.int32)}
 

@@ -8,7 +8,10 @@ Counterpart of bench.py, run as
 at bench.py's shapes and settings (bench.py:235-258): the room scene of
 tools/bench_room.py (seed 0) as 300,000 Gaussians at SH 3, seen from the
 identity pose at 1200x680 with a 1.2 rad horizontal field of view, k_dup 6
-and 1024 entries a tile. It measures, in bench.py's order:
+and 1024 entries a tile, through the entry points the apps take: the
+renders through ops/render.py::render_jit and the steps through
+mapper/trainer.py::StepGraphs (captured CUDA graphs, replayed). It
+measures, in bench.py's order:
 
   * the 1-pass render's FPS and its clipped and overflow counts;
   * the exact render (4096 a tile) and the 2-pass compact render sized from
@@ -18,7 +21,7 @@ and 1024 entries a tile. It measures, in bench.py's order:
     (bench.py:364-388), and the B = 4 batched step's views/s
     (bench.py:390-425);
   * stage_ms: the render (fwd), the backward (loss forward and backward
-    less the render), the binning and Adam;
+    less the render), the binning and Adam, each dispatched op by op;
   * the held-out mapping quality of bench.py's protocol (bench.py:482-650,
     the functions below, which tools/quality_soak_30k.py shares): a fresh
     model fitted to 24 corrupted exact renders of the photo-textured room
@@ -48,7 +51,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from photo_slam_tpu_torch.mapper.trainer import densify_step, train_step
+from photo_slam_tpu_torch.mapper.trainer import StepGraphs, densify_step
 from photo_slam_tpu_torch.models import gaussian_model as gm
 from photo_slam_tpu_torch.models import optimizer as optim
 from photo_slam_tpu_torch.ops import losses
@@ -56,8 +59,8 @@ from photo_slam_tpu_torch.ops.binning import bin_gaussians
 from photo_slam_tpu_torch.ops.camera_math import (CameraMatrices,
                                                   build_camera_matrices)
 from photo_slam_tpu_torch.ops.preprocess import preprocess, tight_extents
-from photo_slam_tpu_torch.ops.render import RenderSettings, render
-from photo_slam_tpu_torch.parallel.sharding import train_step_batched
+from photo_slam_tpu_torch.ops.render import (RenderSettings, render,
+                                             render_jit)
 from photo_slam_tpu_torch.tools.bench_room import (FOVX, HEIGHT, K_DUP32,
                                                    MAX_PER_TILE32,
                                                    N_GAUSSIANS, WIDTH,
@@ -86,7 +89,10 @@ LAMBDA_DSSIM = 0.2
 LRS = (1.6e-4, 2.5e-3, 0.05, 5e-3, 1e-3)   # bench.py:366
 DEADLINE_S = 1350.0          # bench.py's BENCH_DEADLINE_S default
 SCORE_RESERVE_S = 45.0       # kept for the held-out scoring (bench.py)
-DEADLINE_CHECK_EVERY = 250   # fit iterations between deadline checks
+DEADLINE_CHECK_EVERY = 200   # fit iterations between deadline checks
+# fit's train_chunk length (JAX's soak's CHUNK): it divides the densify,
+# telemetry, deadline-check and checkpoint periods.
+CHUNK = 100
 
 # The quality protocol (bench.py:482-650; tools/quality_soak_30k.py).
 GT_OPACITY = 0.85
@@ -168,9 +174,10 @@ def camera(yaw: float, tx: float, ty: float, tz: float, width: int,
 
 def render_image(state: gm.GaussianState, cam: CameraMatrices,
                  s: RenderSettings, bg: torch.Tensor):
+    """The map's render from `cam` through render_jit."""
     sc, qu, op = gm.activated(state.params)
-    return render(state.params.xyz, sc, qu, op, cam, s, bg,
-                  shs=gm.sh_features(state.params), live_mask=state.live)
+    return render_jit(state.params.xyz, sc, qu, op, cam, s, bg,
+                      shs=gm.sh_features(state.params), live_mask=state.live)
 
 
 def scene_extent(pts: np.ndarray) -> float:
@@ -280,18 +287,20 @@ def fit(proto: Protocol, state, opt, gen: torch.Generator, start: int,
         stop: int, on_iter=None, spans: dict | None = None):
     """Protocol iterations start + 1 .. stop: iteration i trains view
     (i - 1) % 24, then densifies where densify_due(i), its split samples
-    drawn from `gen`. on_iter(i, state, opt, metrics) after each iteration
-    may return True to stop there. spans["densify_s"] adds up the densify
-    events' time (the card waited for on both sides). Returns (state,
-    opt, the last iteration run)."""
+    drawn from `gen`. The steps run through one StepGraphs: train_chunk
+    over each whole CHUNK of iterations between multiples of CHUNK, single
+    train steps up to the next multiple where the range is not aligned (as
+    JAX's soak, tools/quality_soak_30k.py:286-305). on_iter(i, state, opt,
+    metrics) after each single step and after each chunk (i its last
+    iteration, the metrics its last step's) may return True to stop there.
+    spans["densify_s"] adds up the densify events' time (the card waited
+    for on both sides). Returns (state, opt, the last iteration run)."""
     dev = proto.mask.device
-    i = start
-    for i in range(start + 1, stop + 1):
-        v = (i - 1) % len(proto.views)
-        state, opt, met = train_step(state, opt, proto.views[v],
-                                     proto.gt_views[v], proto.mask,
-                                     proto.lrs, proto.bg, LAMBDA_DSSIM,
-                                     proto.settings)
+    graphs = StepGraphs()
+    cams = CameraMatrices(*(torch.stack(x) for x in zip(*proto.views)))
+
+    def after(i, met) -> bool:
+        nonlocal state, opt
         if densify_due(i):
             sync(dev)
             t0 = time.perf_counter()
@@ -302,8 +311,27 @@ def fit(proto: Protocol, state, opt, gen: torch.Generator, start: int,
             sync(dev)
             if spans is not None:
                 spans["densify_s"] += time.perf_counter() - t0
-        if on_iter is not None and on_iter(i, state, opt, met):
-            break
+        return on_iter is not None and bool(on_iter(i, state, opt, met))
+
+    i = start
+    while i < stop:
+        n = min(CHUNK - i % CHUNK, stop - i)
+        if n == CHUNK:
+            state, opt, chunk = graphs.train_chunk(
+                state, opt, cams, proto.gt_views, proto.mask, proto.lrs,
+                proto.bg, LAMBDA_DSSIM, i, proto.settings, CHUNK)
+            i += CHUNK
+            if after(i, {k: v[-1] for k, v in chunk.items()}):
+                break
+            continue
+        for _ in range(n):
+            i += 1
+            v = (i - 1) % len(proto.views)
+            state, opt, met = graphs.train_step(
+                state, opt, proto.views[v], proto.gt_views[v], proto.mask,
+                proto.lrs, proto.bg, LAMBDA_DSSIM, proto.settings)
+            if after(i, met):
+                return state, opt, i
     return state, opt, i
 
 
@@ -429,9 +457,11 @@ def main(argv=None) -> tuple[dict, gm.GaussianState]:
                           ).to(dev)
     mask = torch.ones((height, width), device=dev)
 
+    graphs = StepGraphs()
+
     def step(st, op):
-        return train_step(st, op, cam, gt, mask, lrs, bg, LAMBDA_DSSIM,
-                          settings)
+        return graphs.train_step(st, op, cam, gt, mask, lrs, bg,
+                                 LAMBDA_DSSIM, settings)
 
     def steps_per_s(fn, st, op):
         for _ in range(1 + reps.warmup):
@@ -450,9 +480,10 @@ def main(argv=None) -> tuple[dict, gm.GaussianState]:
 
     cams_b = CameraMatrices(*(torch.stack([x] * BATCH) for x in cam))
     gts_b, masks_b = torch.stack([gt] * BATCH), torch.stack([mask] * BATCH)
+    graphs_b = StepGraphs()   # its own map: a copy of the step's
     bps, _, _, bmet = steps_per_s(
-        lambda st, op: train_step_batched(st, op, cams_b, gts_b, masks_b,
-                                          lrs, bg, LAMBDA_DSSIM, settings),
+        lambda st, op: graphs_b.train_step_batched(
+            st, op, cams_b, gts_b, masks_b, lrs, bg, LAMBDA_DSSIM, settings),
         gm.clone_state(state), optim.AdamState(
             m=gm.GaussianParams(*(x.clone() for x in opt.m)),
             v=gm.GaussianParams(*(x.clone() for x in opt.v)),
@@ -462,8 +493,9 @@ def main(argv=None) -> tuple[dict, gm.GaussianState]:
         f"({1e3 / bps:.2f} ms a step)")
     extra["train_views_per_sec_b4"] = round(BATCH * bps, 2)
 
+    del graphs_b
     extra["stage_ms"] = stage_ms(state, cam, gt, settings, bg, lrs,
-                                 frame_ms, reps.stage, dev)
+                                 reps.stage, dev)
     log(f"[bench] stage_ms {extra['stage_ms']}")
 
     # The quality fit.
@@ -512,13 +544,19 @@ def main(argv=None) -> tuple[dict, gm.GaussianState]:
     return result, model
 
 
-def stage_ms(state, cam, gt, settings, bg, lrs, frame_ms, stage_reps: int,
+def stage_ms(state, cam, gt, settings, bg, lrs, stage_reps: int,
              dev) -> dict:
-    """bench.py's stage breakdown of the train step: fwd (the render's
-    frame time), bwd (loss forward and backward less fwd), binning (its
-    share of fwd) and Adam, in ms."""
+    """bench.py's stage breakdown of the train step, each stage dispatched
+    op by op: fwd (the render's frame time), bwd (loss forward and
+    backward less fwd), binning (its share of fwd) and Adam, in ms."""
     w, h = settings.width, settings.height
     live = state.live
+
+    def frame():
+        with torch.no_grad():
+            sc, qu, op = gm.activated(state.params)
+            return render(state.params.xyz, sc, qu, op, cam, settings, bg,
+                          shs=gm.sh_features(state.params), live_mask=live)
 
     def loss_grads():
         params = gm.GaussianParams(*(p.detach().requires_grad_(True)
@@ -545,6 +583,7 @@ def stage_ms(state, cam, gt, settings, bg, lrs, frame_ms, stage_reps: int,
         prep.means2d, prep.depths, prep.radii, prep.visible, w, h, tile=32,
         max_tiles_per_gaussian=settings.max_tiles_per_gaussian,
         max_per_tile=settings.max_per_tile, extents=ext), stage_reps, dev)
+    frame_ms = timed_ms(frame, stage_reps, dev)
     ms_grad = timed_ms(loss_grads, stage_reps, dev)
     with torch.no_grad():
         ms_adam = timed_ms(lambda: optim.adam_step(

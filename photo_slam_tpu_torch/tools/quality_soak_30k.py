@@ -14,7 +14,10 @@ corrupted by the sensor model (--clean leaves them clean: the control run),
 2 clean held-out views; a fresh model of 150,000 noisy grey points with
 1.5x headroom (capacity 450,000), densified every 100 iterations in
 (600, 15000] with no opacity reset, the position LR 3.2e-4 times the
-scene's extent.
+scene's extent. The steps run as JAX's soak runs them: train_chunk in
+chunks of 100 iterations (bench.fit; one captured step graph replayed 100
+times, mapper/trainer.py::StepGraphs), single steps up to the next
+multiple of 100 where a resumed run starts between two.
 
 Every 2,000 iterations it appends a telemetry line (loss, held-out PSNR of
 the first test view, live Gaussians, iterations per second) to
@@ -42,8 +45,9 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from photo_slam_tpu_torch.mapper.trainer import (load_state_npz,
-                                                 save_state_npz, train_step)
+from photo_slam_tpu_torch.mapper.trainer import (StepGraphs,
+                                                 load_state_npz,
+                                                 save_state_npz)
 from photo_slam_tpu_torch.models import gaussian_model as gm
 from photo_slam_tpu_torch.models import optimizer as optim
 from photo_slam_tpu_torch.tools import bench
@@ -148,15 +152,16 @@ def main(argv=None) -> dict:
     # The pure step rate at this capacity, on a throwaway copy.
     ms_state = gm.clone_state(state)
     ms_opt = optim.init_adam(ms_state.params)
+    ms_graphs = StepGraphs()
 
     def one_step():
         nonlocal ms_state, ms_opt
-        ms_state, ms_opt, _ = train_step(
+        ms_state, ms_opt, _ = ms_graphs.train_step(
             ms_state, ms_opt, proto.views[0], proto.gt_views[0], proto.mask,
             proto.lrs, proto.bg, bench.LAMBDA_DSSIM, proto.settings)
 
     step_ms = bench.timed_ms(one_step, STEP_REPS, dev)
-    del ms_state, ms_opt
+    del ms_state, ms_opt, ms_graphs
     log(f"[soak] pure step at capacity {capacity}: {step_ms:.2f} ms "
         f"({1e3 / step_ms:.2f} it/s)")
 

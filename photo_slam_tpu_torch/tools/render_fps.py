@@ -3,22 +3,24 @@
 The room scene (300,000 Gaussians, seed 0, SH 3) viewed at 1200x680 as
 chip_smoke.py views it, rendered 1-pass (max_per_tile 1024) and 2-pass
 compact (sized from the 1-pass render's overflow, as chip_smoke.py sizes
-it), the render's binning stage alone (bin_gaussians, which holds the
-window gather K3) on the view's preprocessed splats, and the train step
-(mapper/trainer.py::train_step on a copy of the map: the 1-pass render,
-the masked L1 + SSIM loss against a seeded random ground truth, lambda 0.2,
-the backward through K2 and Adam at bench.py's learning rates, as
-chip_smoke.py drives it). After two warm-up calls of each, `--blocks`
-blocks of `--calls` calls of each, timed on the host clock with a
-synchronize at each end: the spread between blocks of one process shows
-how far the host moves a frame or a step. Beside them, the blend wrappers
+it) through the apps' entry point, ops/render.py::render_jit (replayed
+from a captured graph), the render's binning stage alone (bin_gaussians,
+which holds the window gather K3) on the view's preprocessed splats, and
+the train step through mapper/trainer.py::StepGraphs (its graph, on a copy
+of the map: the 1-pass render, the masked L1 + SSIM loss against a seeded
+random ground truth, lambda 0.2, the backward through K2 and Adam at
+bench.py's learning rates, as chip_smoke.py drives it). After two
+warm-up calls of each, `--blocks` blocks of `--calls` calls of each,
+timed on the host clock with a synchronize at each end: the spread
+between blocks of one process shows how far the host moves a frame or a
+step. Beside them, the blend wrappers
 alone (blend_fwd for K1, blend_bwd for K2) on 8 empty tiles of
 [8, 1024, 16], where the device has next to nothing to do, in blocks of
 200 calls: their calls per second are the host's cost per call.
 
 The script imports `photo_slam_tpu_torch` from the path, so it times the
 checkout that PYTHONPATH names first, and can time another checkout's
-package (one with the same render and train_step API) when run by its
+package (one with the same render_jit and StepGraphs API) when run by its
 file path:
 
     PYTHONPATH=<checkout> python3 photo_slam_tpu_torch/tools/render_fps.py
@@ -37,14 +39,14 @@ import numpy as np
 import torch
 
 import photo_slam_tpu_torch
-from photo_slam_tpu_torch.mapper.trainer import train_step
+from photo_slam_tpu_torch.mapper.trainer import StepGraphs
 from photo_slam_tpu_torch.models import gaussian_model as gm
 from photo_slam_tpu_torch.models import optimizer as optim
 from photo_slam_tpu_torch.ops.binning import bin_gaussians
 from photo_slam_tpu_torch.ops.blend import blend_bwd, blend_fwd
 from photo_slam_tpu_torch.ops.camera_math import build_camera_matrices
 from photo_slam_tpu_torch.ops.preprocess import preprocess, tight_extents
-from photo_slam_tpu_torch.ops.render import RenderSettings, render
+from photo_slam_tpu_torch.ops.render import RenderSettings, render_jit
 from photo_slam_tpu_torch.tools.bench_room import room_scene
 
 N_GAUSSIANS = 300_000
@@ -91,9 +93,12 @@ def main(argv=None) -> int:
                               mode="pallas", max_tiles_per_gaussian=K_DUP,
                               max_per_tile=MAX_PER_TILE, **kw)
 
+    train_step = StepGraphs().train_step
+
     def do_render(s):
-        return render(state.params.xyz, scales, quats, opac, cam, s, bg,
-                      shs=shs, live_mask=state.live)
+        with torch.no_grad():
+            return render_jit(state.params.xyz, scales, quats, opac, cam, s,
+                              bg, shs=shs, live_mask=state.live)
 
     one = do_render(settings())
     over, depth = int(one.num_overflow_tiles), int(one.max_tile_depth)

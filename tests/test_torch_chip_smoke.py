@@ -14,13 +14,20 @@ the online phase's helpers: its in-memory sequence (tools/synth_replica.py)
 and the correction ops it makes and its CPU twin; and the euroc phase's:
 the gravity angle, the share of disparities near the truth, the sgm
 kernel's bound and its row of the `kernels` line; and the viewer and
-batched phases': the stages of a /render request, a served PNG against a
-render, the /render query and the batched step's launch check; and the
+batched phases': the stages of a /render request, the client run at a
+request count and the render-lock waits, a served PNG against a render,
+the /render query, the map sizes of the render graphs and the batched
+step's launch check; and the
 sharded phase's: the collective path, the ranks' launches summed, the
 bytes of each collective, the twin checks and the caps that do not
 bind; and the colmap and attr phases': the call counter they count
 densify events and capacity growths with, the colmap run's checks and
-line, and the numbers of an attribution they hold finite."""
+line, and the numbers of an attribution they hold finite; and the graph
+phase's: the swap that runs the graphed entry points op by op (their
+eager twins, also inside plain_kernels) and the bit-equality check of two
+results."""
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -871,6 +878,61 @@ def test_request_stages():
         cs.request_stages(prof.summary(), 2)
 
 
+def test_viewer_client_run_and_lock_waits(monkeypatch):
+    """viewer_client_run serves exactly `requests` /render requests while
+    the mapper steps, and fails on a bad answer; lock_waits reads the
+    viewer's and the mapper's render-lock spans."""
+    from types import SimpleNamespace
+
+    from photo_slam_tpu_torch.io import images
+    from photo_slam_tpu_torch.utils.profiling import Profiler
+
+    served, steps = [], []
+    answer = [(200, images.PNG_SIGNATURE + b"x", "image/png")]
+
+    def get(port, path, timeout=120):
+        served.append(path)
+        time.sleep(0.002)
+        return answer[0]
+
+    def step():
+        steps.append(1)
+        time.sleep(0.001)
+
+    monkeypatch.setattr(cs, "http_get", get)
+    mapper = SimpleNamespace(profiler=Profiler())
+    server = SimpleNamespace(port=1, profiler=Profiler())
+    host = SimpleNamespace(cuda=SimpleNamespace(synchronize=lambda: None))
+    mapper.profiler.record("mapper.lock_wait", 1.0)   # cleared first
+    times, it_s = cs.viewer_client_run(host, mapper, server, "/render?q",
+                                       step, images, requests=5)
+    assert len(times) == 5 and served == ["/render?q"] * 5
+    assert steps and it_s > 0 and not mapper.profiler.spans
+    answer[0] = (500, b"", "text/plain")
+    with pytest.raises(AssertionError, match="failures"):
+        cs.viewer_client_run(host, mapper, server, "/render?q", step,
+                             images, requests=2)
+    server.profiler.record("viewer.lock_wait", 0.002)
+    server.profiler.record("viewer.lock_wait", 0.004)
+    mapper.profiler.record("mapper.lock_wait", 0.001)
+    assert cs.lock_waits(server, mapper) == (
+        "viewer 3.0000 / 4.0000 ms over 2, mapper 1.0000 / 1.0000 ms "
+        "over 1")
+
+
+def test_render_graph_rows():
+    """The map sizes of a render graph cache's entries, read from their
+    keys."""
+    from photo_slam_tpu_torch.utils import graphs
+
+    cache = graphs.GraphCache()
+    for rows in (8, 8, 16):
+        fresh = (torch.zeros(rows, 3), torch.zeros(4, 4))
+        cache.entry(cache.key_of(("render", rows, len(cache)), fresh),
+                    lambda: None)
+    assert cs.render_graph_rows(cache) == {8, 16}
+
+
 def test_png_levels_apart():
     """The served PNG (the viewer's own encoder) against a render: 0 levels
     for the same image, 1 for a pixel one level off, None for another
@@ -1106,6 +1168,46 @@ def test_counting_calls_counts_and_puts_back():
         with cs.counting_calls({"grow_capacity": (gm, "grow_capacity")}):
             gm.grow_capacity(state, 2)
     assert gm.grow_capacity is grow
+
+
+def test_eager_graphs_calls_directly_and_puts_back():
+    """eager_graphs puts a direct call in GraphCache.run's place for the
+    block (`replays` calls, clones when asked) and the method back after,
+    also when the block raises; plain_kernels holds it too."""
+    from photo_slam_tpu_torch.ops import binning, blend, tiled
+    from photo_slam_tpu_torch.utils import graphs
+
+    run = graphs.GraphCache.run
+    cache = graphs.GraphCache()
+    x = torch.zeros(2)
+    with cs.eager_graphs():
+        assert graphs.GraphCache.run is not run
+        out = cache.run("k", lambda a: (a.add_(1),), (x,), replays=3,
+                        clone=True)
+    assert graphs.GraphCache.run is run
+    assert torch.equal(x, torch.full((2,), 3.0))
+    assert out[0] is not x and torch.equal(out[0], x)
+    with pytest.raises(ValueError):
+        with cs.eager_graphs():
+            raise ValueError("inside")
+    assert graphs.GraphCache.run is run
+    with cs.plain_kernels(binning, blend, tiled):
+        assert graphs.GraphCache.run is not run
+        assert blend.blend_fwd is blend.blend_fwd_plain
+    assert graphs.GraphCache.run is run
+    assert cache.captures == 0
+
+
+def test_check_results_equal():
+    """check_results_equal passes bit-equal tuples of tensors and names the
+    fields that differ."""
+    a = (torch.arange(3.0), torch.tensor(2, dtype=torch.int32))
+    cs.check_results_equal(torch, "same", a, tuple(x.clone() for x in a))
+    b = (torch.arange(3.0) + 1e-7, a[1])
+    with pytest.raises(AssertionError, match=r"fields \[0\]"):
+        cs.check_results_equal(torch, "moved", a, b)
+    with pytest.raises(AssertionError):
+        cs.check_results_equal(torch, "short", a, a[:1])
 
 
 def colmap_summary(**kw):
