@@ -26,7 +26,9 @@ mapping ops), so unlike the JAX package's immutable state it needs the
 reference's render mutex (mutex_render_, src/gaussian_mapper.cpp:1549):
 `render_lock` is held around every write of the map (the trainer's state
 lock) and around each mapping op, and render_from_pose holds it while it
-reads the map and enqueues its render on the mapper's stream.
+reads the map and enqueues its render on the mapper's stream. The
+correction ops' map transforms replay from the trainer's StepGraphs
+(graphed on a card, as the JAX package jits them).
 """
 from __future__ import annotations
 
@@ -46,7 +48,6 @@ from photo_slam_tpu_torch.mapper.mapping_ops import (KeyframeData,
                                                      MappingOperation, OprType)
 from photo_slam_tpu_torch.mapper.trainer import GaussianTrainer
 from photo_slam_tpu_torch.models import gaussian_model as gm
-from photo_slam_tpu_torch.models import transforms as xf
 from photo_slam_tpu_torch.models.camera import Camera, resize_image
 from photo_slam_tpu_torch.models.keyframe import Keyframe
 from photo_slam_tpu_torch.models.scene import Scene
@@ -155,8 +156,9 @@ class GaussianMapper:
         # graphs), else the reference's single per-op scale. One
         # not_transformed mask runs across all keyframes of the op.
         per_kf = any(k.scale != 1.0 for k in op.keyframes)
-        not_transformed = (torch.ones(self.trainer.state.capacity,
-                                      dtype=torch.bool, device=self.device)
+        graphs = self.trainer.graphs
+        not_transformed = (graphs.transform_mask(self.trainer.state.capacity,
+                                                 self.device)
                            if self.initial_mapped else None)
         # Before/after loop-correction map snapshots (reference
         # record_loop_ply_, src/gaussian_mapper.cpp:878-946).
@@ -187,7 +189,7 @@ class GaussianMapper:
                 diff_adj[:3, 3] = scale * (diff[:3, 3] - new_twc[:3, 3]) + (
                     new_twc[:3, 3])
                 (self.trainer.state, self.trainer.opt_state, not_transformed,
-                 _num) = xf.scaled_transform_visible_points_of_keyframe(
+                 _num) = graphs.scaled_transform_visible_points_of_keyframe(
                     self.trainer.state, self.trainer.opt_state,
                     not_transformed,
                     torch.as_tensor(diff_adj, dtype=torch.float32,
@@ -207,7 +209,7 @@ class GaussianMapper:
         s, T = op.scale, op.transform
         if self.initial_mapped:
             self.trainer.state, self.trainer.opt_state = (
-                xf.apply_scaled_transformation(
+                self.trainer.graphs.apply_scaled_transformation(
                     self.trainer.state, self.trainer.opt_state,
                     torch.as_tensor(T, dtype=torch.float32,
                                     device=self.device), s))

@@ -19,15 +19,18 @@ functions; capacity growth re-buckets on the host.
     densify and prune, the opacity reset, insertion and capacity growth.
     A viewer thread that renders under it never sees a torn map.
 
-JAX's jit is StepGraphs here: train_step, train_chunk and the
-single-device B-view step captured as CUDA graphs per settings and shape,
-replayed with the map and its Adam state donated (utils/graphs.py). The
-functions below dispatch op by op; they are what the graphs capture, and
-what runs on the CPU. train_chunk replays one step's graph num_steps
-times, the view index a device tensor the step advances. Densify, the
-opacity reset and the map transforms stay op by op (one call per 100
-iterations or per mapping operation). The port always renders with the
-kernel path (mode "pallas").
+JAX's jit is StepGraphs here: every function the JAX package jits with
+the map donated is captured as a CUDA graph per settings and shape and
+replayed on the map where it lies (utils/graphs.py): train_step,
+train_chunk, the B-view step, densify and prune, the opacity reset, the
+two map transforms of models/transforms.py, and, over an NCCL group on a
+card, the multi-process functions of parallel/sharding.py (the
+view-parallel and Gaussian-sharded steps, the sharded densify and the
+band render), collectives inside the graph. The functions below dispatch
+op by op; they are what the graphs capture, and what runs on the CPU.
+train_chunk replays one step's graph num_steps times, the view index a
+device tensor the step advances. The port always renders with the kernel
+path (mode "pallas").
 """
 from __future__ import annotations
 
@@ -47,6 +50,7 @@ from photo_slam_tpu_torch.mapper.sampler import KeyframeSampler
 from photo_slam_tpu_torch.models import densify as dz
 from photo_slam_tpu_torch.models import gaussian_model as gm
 from photo_slam_tpu_torch.models import optimizer as optim
+from photo_slam_tpu_torch.models import transforms as xf
 from photo_slam_tpu_torch.models.keyframe import Keyframe
 from photo_slam_tpu_torch.models.scene import Scene
 from photo_slam_tpu_torch.ops import losses
@@ -54,6 +58,7 @@ from photo_slam_tpu_torch.ops.camera_math import CameraMatrices
 from photo_slam_tpu_torch.ops.render import (RenderSettings,
                                              drop_render_graphs,
                                              principal_for, render)
+from photo_slam_tpu_torch.parallel import sharding
 from photo_slam_tpu_torch.parallel.sharding import train_step_batched
 from photo_slam_tpu_torch.utils.graphs import GraphCache, spec
 from photo_slam_tpu_torch.utils.profiling import Profiler
@@ -232,28 +237,90 @@ def _from_tensors(ts) -> tuple:
     return state, opt
 
 
+def _assign(state, opt_state, new_state, new_opt) -> None:
+    """Write new_state and new_opt into the tensors of state and opt_state
+    (a function's new tensors into the donated ones), skipping the tensors
+    they share."""
+    with torch.no_grad():
+        for a, b in zip(_tensors(state, opt_state),
+                        _tensors(new_state, new_opt)):
+            if a is not b:
+                a.copy_(b)
+
+
+def densify_step(state, opt_state, noise: torch.Tensor, extent, *,
+                 grad_threshold: float, min_opacity: float,
+                 max_screen_size: int, percent_dense: float):
+    """One densify + prune event as new tensors (JAX's densify_step);
+    noise [2, C, 3] standard normals for the split children, `extent` a
+    float or a 0-d float32 tensor (models/densify.densify_and_prune)."""
+    return dz.densify_and_prune(state, opt_state, noise, grad_threshold,
+                                min_opacity, extent, max_screen_size,
+                                percent_dense)
+
+
+def opacity_reset_step(state, opt_state):
+    return dz.reset_opacity(state, opt_state)
+
+
+def densify_step_(state, opt_state, noise, extent, **static
+                  ) -> dz.DensifyInfo:
+    """densify_step written IN PLACE into the tensors of state and
+    opt_state (JAX donates them): the function StepGraphs.densify_step
+    captures. Returns the DensifyInfo (0-d tensors)."""
+    new_state, new_opt, info = densify_step(state, opt_state, noise, extent,
+                                            **static)
+    _assign(state, opt_state, new_state, new_opt)
+    return info
+
+
+def opacity_reset_step_(state, opt_state) -> None:
+    """opacity_reset_step written IN PLACE (StepGraphs captures it)."""
+    _assign(state, opt_state, *opacity_reset_step(state, opt_state))
+
+
+def _scalar(x, dtype, device) -> torch.Tensor:
+    """x as a 0-d tensor on `device`: a Python number becomes a fill, so
+    nothing waits for the device and no graph bakes it in."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=dtype)
+    return torch.full((), x, dtype=dtype, device=device)
+
+
+GP_METRICS = ("loss", "num_visible", "binning_clipped", "binning_overflow")
+
+
 class StepGraphs:
-    """The train step, train_chunk and the single-device B-view step of one
-    map as captured CUDA graphs (utils/graphs.py), replayed: the
-    counterpart of JAX's jitted train_step, train_chunk and
-    train_step_batched with `state` and `opt_state` donated.
+    """The functions the JAX package jits with a map donated, of one map,
+    as captured CUDA graphs (utils/graphs.py), replayed: train_step,
+    train_chunk, the B-view step, densify_step, opacity_reset_step, the
+    map transforms apply_scaled_transformation and
+    scaled_transform_visible_points_of_keyframe, and, per rank of an NCCL
+    group, the view-parallel step, the Gaussian-sharded step and densify
+    and the band render of parallel/sharding.py.
 
     The graphs read and write the map and its Adam state where they lie:
-    the resident tensors. The first step adopts the tensors it is given
-    (a fresh copy where two of them share memory); a later step given
-    other tensors of the same shapes (after densify, the opacity reset,
-    insertion, a checkpoint or PLY load, which make new tensors) copies
-    them into the resident ones, once; tensors of other shapes (a capacity
-    growth) are adopted and the graphs of the old ones dropped (`drop`).
-    Each call returns the resident state: the tensors passed in are
-    donated and must not be used again. The graphs are keyed by the render
-    settings (so a new image size, pyramid level or SH degree captures
-    anew, as JAX recompiles), lambda and the input shapes. The learning
-    rates are read from 0-d device tensors refreshed before each replay.
-    The metrics are the graph's static outputs: whoever keeps them across
-    replays clones them.
+    the resident tensors. The first call adopts the tensors it is given
+    (a fresh copy where two of them share memory); a later call given
+    other tensors of the same shapes (after insertion, a checkpoint or PLY
+    load, which make new tensors) copies them into the resident ones,
+    once; tensors of other shapes (a capacity growth) are adopted and the
+    graphs of the old ones dropped (`drop`). Each call returns the
+    resident state: the tensors passed in are donated and must not be
+    used again. Densify and the reset write their results into the
+    resident tensors, so no copy follows them.
 
-    On the CPU the same functions run directly (the plain route)."""
+    The graphs are keyed as JAX's static arguments: the render settings
+    (a new image size, pyramid level or SH degree captures anew), lambda,
+    densify's four thresholds, and over a group its size, the rank and
+    the backend; the input shapes too. Every other scalar is a 0-d device
+    input, as JAX traces it: the learning rates (refreshed before each
+    replay), densify's extent, the transforms' scale, iteration and
+    threshold. The outputs (metrics, densify counts) are the graph's
+    static outputs: whoever keeps them across replays clones them.
+
+    On the CPU the same functions run directly (the plain route); a gloo
+    group on a card raises (sharding.graph_route)."""
 
     def __init__(self):
         self.cache = GraphCache()
@@ -261,6 +328,7 @@ class StepGraphs:
         self._lrs: Optional[optim.LearningRates] = None
         self._index: Optional[tuple] = None   # train_chunk's (view, j)
         self._buffers: dict = {}   # train_chunk's metric buffers by length
+        self._mask: Optional[torch.Tensor] = None   # the transforms' mask
 
     @property
     def captures(self) -> int:
@@ -269,12 +337,13 @@ class StepGraphs:
     def drop(self) -> None:
         """Drop the graphs and the resident tensors (a capacity growth)."""
         self.cache.clear()
-        self._resident = self._index = None
+        self._resident = self._index = self._mask = None
         self._buffers = {}
 
-    def _donate(self, state, opt_state, lrs) -> tuple:
+    def _donate(self, state, opt_state, lrs=None) -> tuple:
         """(state, opt_state) on the resident tensors, which now hold the
-        given ones, with the learning-rate tensors set to `lrs`."""
+        given ones, with the learning-rate tensors set to `lrs` (when
+        given)."""
         ts = _tensors(state, opt_state)
         res = self._resident
         if res is None or [spec(x) for x in res] != [spec(x) for x in ts]:
@@ -291,7 +360,8 @@ class StepGraphs:
                 for a, b in zip(res, ts):
                     if a is not b:
                         a.copy_(b)
-        optim.set_lrs(self._lrs, lrs)
+        if lrs is not None:
+            optim.set_lrs(self._lrs, lrs)
         return _from_tensors(res)
 
     def _replay(self, key, body, cams, fresh, extra=(), replays=1) -> tuple:
@@ -310,6 +380,32 @@ class StepGraphs:
         return self.cache.run(key, fn, (*cams, *fresh),
                               (*self._resident, *self._lrs, *extra),
                               replays=replays)
+
+    def _on_map(self, key, body, state, opt_state, fresh=(), extra=()
+                ) -> tuple:
+        """body(*fresh, state, opt_state, *extra) -> a tuple of tensors,
+        from the graph of `key` on the resident map (on the CPU, called on
+        the given map): `fresh` tensors are copied into the graph's
+        buffers, `extra` tensors read and written where they lie. Returns
+        (state, opt_state, outputs)."""
+        if state.live.device.type == "cuda":
+            state, opt_state = self._donate(state, opt_state)
+        ts = _tensors(state, opt_state)
+        k, n = len(fresh), len(ts)
+
+        def fn(*xs):
+            st, op = _from_tensors(xs[k:k + n])
+            return body(*xs[:k], st, op, *xs[k + n:])
+
+        return state, opt_state, self.cache.run(key, fn, fresh,
+                                                (*ts, *extra))
+
+    def _graphed(self, device, group) -> bool:
+        """Whether a call on `device` over `group` (None: one device)
+        replays a graph; raises for a gloo group on a card."""
+        if group is None:
+            return device.type == "cuda"
+        return sharding.graph_route(group, device)
 
     def train_step(self, state, opt_state, cam: CameraMatrices,
                    gt_image, mask, lrs: optim.LearningRates, bg_color,
@@ -368,39 +464,211 @@ class StepGraphs:
     def train_step_batched(self, state, opt_state, cams: CameraMatrices,
                            gt_images, masks, lrs: optim.LearningRates,
                            bg_color, lambda_dssim: float,
-                           settings: RenderSettings, lock=None):
-        """parallel/sharding.train_step_batched (group None) from its
-        graph; `lock` as in train_step."""
-        if state.live.device.type != "cuda":
+                           settings: RenderSettings, lock=None, group=None):
+        """parallel/sharding.train_step_batched from its graph: without a
+        group the single-device B-view step, with an NCCL group this
+        rank's view-parallel step (its views, its replica of the map), the
+        sums and maxima over the ranks inside the graph. `lock` as in
+        train_step."""
+        if not self._graphed(state.live.device, group):
             return train_step_batched(state, opt_state, cams, gt_images,
                                       masks, lrs, bg_color, lambda_dssim,
-                                      settings, lock=lock)
+                                      settings, lock=lock, group=group)
 
         def body(cams, gts, masks, bg, st, op, lrs):
             met = train_step_batched(st, op, cams, gts, masks, lrs, bg,
-                                     lambda_dssim, settings)[2]
+                                     lambda_dssim, settings, group=group)[2]
             return (met["loss"], met["num_visible"])
 
         with lock or contextlib.nullcontext():
             state, opt_state = self._donate(state, opt_state, lrs)
             out = self._replay(("train_step_batched", settings,
-                                lambda_dssim), body, cams,
-                               (gt_images, masks, bg_color))
+                                lambda_dssim, *sharding.group_key(group)),
+                               body, cams, (gt_images, masks, bg_color))
         return state, opt_state, dict(zip(("loss", "num_visible"), out))
 
+    # -- the structural events and the map transforms ----------------------
 
-def densify_step(state, opt_state, noise: torch.Tensor, extent, *,
-                 grad_threshold: float, min_opacity: float,
-                 max_screen_size: int, percent_dense: float):
-    """One densify + prune event; noise [2, C, 3] standard normals for the
-    split children (models/densify.densify_and_prune)."""
-    return dz.densify_and_prune(state, opt_state, noise, grad_threshold,
-                                min_opacity, extent, max_screen_size,
-                                percent_dense)
+    def split_noise(self, capacity: int, device) -> torch.Tensor:
+        """The [2, capacity, 3] float32 tensor densify_step's split draws
+        go into: on a card the graph's own input buffer, so that the
+        caller's draw (noise.normal_(generator=...)) lands where the
+        replay reads it; on the CPU a new tensor."""
+        shape, dev = (2, capacity, 3), torch.device(device)
+        if dev.type != "cuda":
+            return torch.empty(shape, device=dev)
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        return self.cache.input_buffer(0, shape, torch.float32, dev)
 
+    def densify_step(self, state, opt_state, noise, extent, *,
+                     grad_threshold: float, min_opacity: float,
+                     max_screen_size: int, percent_dense: float):
+        """densify_step_ from its graph, one per set of thresholds (JAX's
+        static arguments) and capacity; `extent` a float or a 0-d tensor,
+        the graph's input. Returns (state, opt_state, DensifyInfo of the
+        graph's outputs)."""
+        static = dict(grad_threshold=grad_threshold, min_opacity=min_opacity,
+                      max_screen_size=max_screen_size,
+                      percent_dense=percent_dense)
 
-def opacity_reset_step(state, opt_state):
-    return dz.reset_opacity(state, opt_state)
+        def body(noise, extent, st, op):
+            return tuple(densify_step_(st, op, noise, extent, **static))
+
+        state, opt_state, out = self._on_map(
+            ("densify_step", *static.items()), body, state, opt_state,
+            (noise, _scalar(extent, torch.float32, noise.device)))
+        return state, opt_state, dz.DensifyInfo(*out)
+
+    def opacity_reset_step(self, state, opt_state):
+        """opacity_reset_step_ from its graph. Returns (state, opt_state)."""
+        def body(st, op):
+            opacity_reset_step_(st, op)
+            return ()
+
+        state, opt_state, _ = self._on_map(("opacity_reset_step",), body,
+                                           state, opt_state)
+        return state, opt_state
+
+    def apply_scaled_transformation(self, state, opt_state, T, s):
+        """models/transforms.apply_scaled_transformation from its graph:
+        T [4, 4] and s (a float or a 0-d tensor) are the graph's inputs, so
+        one capture a capacity serves every scale refinement. Returns
+        (state, opt_state)."""
+        def body(T, s, st, op):
+            xf.apply_scaled_transformation(st, op, T, s)
+            return ()
+
+        dev = state.live.device
+        state, opt_state, _ = self._on_map(
+            ("apply_scaled_transformation",), body, state, opt_state,
+            (T, _scalar(s, torch.float32, dev)))
+        return state, opt_state
+
+    def transform_mask(self, capacity: int, device) -> torch.Tensor:
+        """A loop closure's not_transformed mask, set to True: on a card
+        one buffer kept across operations (JAX donates it), so that the
+        transform's graph reads and writes it where it lies."""
+        dev = torch.device(device)
+        if dev.type != "cuda":
+            return torch.ones(capacity, dtype=torch.bool, device=dev)
+        if self._mask is None or self._mask.shape[0] != capacity \
+                or self._mask.device != dev:
+            self._mask = torch.empty(capacity, dtype=torch.bool, device=dev)
+        return self._mask.fill_(True)
+
+    def scaled_transform_visible_points_of_keyframe(
+            self, state, opt_state, not_transformed, diff_pose,
+            kf_viewmatrix, kf_full_proj, kf_creation_iter, stable_num_iter,
+            scale):
+        """models/transforms.scaled_transform_visible_points_of_keyframe
+        from its graph: the matrices, the iteration, the threshold and the
+        scale (numbers or 0-d tensors) are its inputs, so one capture a
+        capacity serves every keyframe of every loop closure;
+        not_transformed (transform_mask) is written in place. Returns
+        (state, opt_state, not_transformed, num_transformed)."""
+        def body(diff, vm, fp, it, stable, s, st, op, nt):
+            new_nt, num = xf.scaled_transform_visible_points_of_keyframe(
+                st, op, nt, diff, vm, fp, it, stable, s)[2:]
+            nt.copy_(new_nt)
+            return (num,)
+
+        dev = state.live.device
+        state, opt_state, (num,) = self._on_map(
+            ("scaled_transform_visible_points_of_keyframe",), body, state,
+            opt_state, (diff_pose, kf_viewmatrix, kf_full_proj,
+                        _scalar(kf_creation_iter, torch.int32, dev),
+                        _scalar(stable_num_iter, torch.int32, dev),
+                        _scalar(scale, torch.float32, dev)),
+            (not_transformed,))
+        return state, opt_state, not_transformed, num
+
+    # -- the multi-process functions, one rank's graphs -------------------
+
+    def train_step_gaussian_sharded(self, state, opt_state, cam, gt_image,
+                                    mask, lrs: optim.LearningRates,
+                                    bg_color, lambda_dssim: float,
+                                    settings: RenderSettings, group):
+        """parallel/sharding.train_step_gaussian_sharded from this rank's
+        graph (the rank's block of the map resident, the feature and band
+        gathers and the backward's reduce-scatter inside the graph).
+        Returns (state, opt_state, metrics of the graph's outputs)."""
+        if not self._graphed(state.live.device, group):
+            return sharding.train_step_gaussian_sharded(
+                state, opt_state, cam, gt_image, mask, lrs, bg_color,
+                lambda_dssim, settings, group)
+
+        def body(cam, gt, mask, bg, st, op, lrs):
+            st2, op2, met = sharding.train_step_gaussian_sharded(
+                st, op, cam, gt, mask, lrs, bg, lambda_dssim, settings,
+                group)
+            _assign(st, op, st2, op2)
+            return tuple(met[k] for k in GP_METRICS)
+
+        state, opt_state = self._donate(state, opt_state, lrs)
+        out = self._replay(("train_step_gaussian_sharded", settings,
+                            lambda_dssim, *sharding.group_key(group)), body,
+                           cam, (gt_image, mask, bg_color))
+        return state, opt_state, dict(zip(GP_METRICS, out))
+
+    def densify_step_gaussian_sharded(self, state, opt_state, noise, extent,
+                                      *, grad_threshold: float,
+                                      min_opacity: float,
+                                      max_screen_size: int,
+                                      percent_dense: float, group):
+        """parallel/sharding.densify_step_gaussian_sharded from this rank's
+        graph, keyed as densify_step and by the group; written into the
+        rank's resident block. Returns (state, opt_state, DensifyInfo
+        summed over the ranks)."""
+        static = dict(grad_threshold=grad_threshold, min_opacity=min_opacity,
+                      max_screen_size=max_screen_size,
+                      percent_dense=percent_dense)
+        if not self._graphed(state.live.device, group):
+            return sharding.densify_step_gaussian_sharded(
+                state, opt_state, noise, extent, group=group, **static)
+
+        def body(noise, extent, st, op):
+            st2, op2, info = sharding.densify_step_gaussian_sharded(
+                st, op, noise, extent, group=group, **static)
+            _assign(st, op, st2, op2)
+            return tuple(info)
+
+        state, opt_state, out = self._on_map(
+            ("densify_step_gaussian_sharded", *static.items(),
+             *sharding.group_key(group)), body, state, opt_state,
+            (noise, _scalar(extent, torch.float32, noise.device)))
+        return state, opt_state, dz.DensifyInfo(*out)
+
+    def render_image_sharded(self, group, means3d, scales, quats, opacities,
+                             cam: CameraMatrices, settings: RenderSettings,
+                             bg_color, shs=None, colors_precomp=None,
+                             live_mask=None) -> torch.Tensor:
+        """parallel/sharding.render_image_sharded from this rank's graph
+        (its band, the bands' gather inside the graph); it reads no
+        resident map: its inputs are copied into the graph's buffers, as
+        render_jit's are. Returns the graph's static [3, H, W] image."""
+        if not self._graphed(means3d.device, group):
+            with torch.no_grad():
+                return sharding.render_image_sharded(
+                    group, means3d, scales, quats, opacities, cam, settings,
+                    bg_color, shs=shs, colors_precomp=colors_precomp,
+                    live_mask=live_mask)
+        opts = {k: v for k, v in (("shs", shs),
+                                  ("colors_precomp", colors_precomp),
+                                  ("live_mask", live_mask)) if v is not None}
+
+        def fn(means3d, scales, quats, opacities, vm, fp, cc, bg, *xs):
+            with torch.no_grad():
+                return (sharding.render_image_sharded(
+                    group, means3d, scales, quats, opacities,
+                    CameraMatrices(vm, fp, cc), settings, bg,
+                    **dict(zip(opts, xs))),)
+
+        return self.cache.run(
+            ("render_image_sharded", settings, tuple(opts),
+             *sharding.group_key(group)), fn,
+            (means3d, scales, quats, opacities, *cam, bg_color,
+             *opts.values()))[0]
 
 
 @dataclass
@@ -634,10 +902,12 @@ class GaussianTrainer:
             size_threshold = 20 if it > o.prune_big_point_after_iter else 0
             with self._writing():
                 self._ensure_capacity()
-                noise = torch.randn((2, self.state.capacity, 3),
-                                    generator=self.generator,
-                                    device=self.device)
-                self.state, self.opt_state, info = densify_step(
+                # The split draws, from the trainer's generator, straight
+                # into the buffer the densify graph reads.
+                noise = self.graphs.split_noise(self.state.capacity,
+                                                self.device)
+                noise.normal_(generator=self.generator)
+                self.state, self.opt_state, info = self.graphs.densify_step(
                     self.state, self.opt_state, noise,
                     self.scene.cameras_extent,
                     grad_threshold=o.densify_grad_threshold,
@@ -653,7 +923,7 @@ class GaussianTrainer:
                 and it == o.densify_from_iter)
         ):
             with self._writing():
-                self.state, self.opt_state = opacity_reset_step(
+                self.state, self.opt_state = self.graphs.opacity_reset_step(
                     self.state, self.opt_state)
 
     def _fetch(self, metrics: dict) -> None:

@@ -34,6 +34,12 @@ function's `group=None` is the single-device path above, unchanged):
     the full frame.
 
 The collectives and their transposes are in parallel/collectives.py.
+The functions here dispatch op by op, on any backend. On a card whose
+group is NCCL, mapper/trainer.StepGraphs replays each of the four (the
+view-parallel step, the band render, the Gaussian-sharded step and its
+densify) from a graph that every rank captures with the collectives
+inside it (graph_route); a gloo group cannot be captured, and the graph
+route raises for it rather than dispatching op by op in its place.
 """
 from __future__ import annotations
 
@@ -41,6 +47,7 @@ import contextlib
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from photo_slam_tpu_torch.models import densify as dz
 from photo_slam_tpu_torch.models import gaussian_model as gm
@@ -152,9 +159,10 @@ def train_step_batched(
     place. `lock` (a context manager, e.g. the mapper's render lock) is
     held around the state writes: the densification statistics and Adam.
     Returns (state, opt_state, {"loss", "num_visible"}) with 0-d tensors.
-    Without a group this is the function mapper/trainer.StepGraphs
-    captures as a CUDA graph; with one it runs op by op (a gloo group
-    cannot be captured).
+    This is the function mapper/trainer.StepGraphs.train_step_batched
+    captures as a CUDA graph: without a group, and with an NCCL group on a
+    card (each rank its own graph, the collectives inside it). Called by
+    name it runs op by op on any backend, as gloo ranks must.
 
     With a process group of n ranks, each rank passes its own B/n views
     (shard_batch_args) and its replica of the map (replicate): the sums
@@ -189,6 +197,39 @@ def train_step_batched(
     return state, opt_state, {
         "loss": loss_s * inv_b,
         "num_visible": visible.sum(dtype=torch.int32)}
+
+
+# Backends whose collectives a CUDA graph can capture.
+CAPTURABLE_BACKENDS = ("nccl",)
+
+
+def graph_route(group, device) -> bool:
+    """Whether StepGraphs replays a multi-process function over `group`
+    on `device` from a captured graph: False off a card (the functions run
+    op by op, on any backend: the plain route), True on a card with an
+    NCCL group. Raises ValueError, naming the backend, for any other
+    backend on a card (gloo's collectives cannot be captured): nothing
+    runs op by op in a graph's place unasked; call the functions of this
+    module by name for that."""
+    if torch.device(device).type != "cuda":
+        return False
+    backend = str(dist.get_backend(group))
+    if backend not in CAPTURABLE_BACKENDS:
+        raise ValueError(f"graph route: a {backend} group cannot be "
+                         f"captured in a CUDA graph (capturable: "
+                         f"{', '.join(CAPTURABLE_BACKENDS)}); call "
+                         "parallel/sharding's functions by name to run "
+                         "it op by op")
+    return True
+
+
+def group_key(group) -> tuple:
+    """The part of a graph's key that a group makes: its size, this rank
+    and the backend (none without a group)."""
+    if group is None:
+        return ()
+    return (coll.size_of(group), coll.rank_of(group),
+            str(dist.get_backend(group)))
 
 
 def shard_batch_args(group, cams: CameraMatrices, gt_images: torch.Tensor,

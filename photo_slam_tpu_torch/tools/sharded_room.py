@@ -15,6 +15,16 @@ Gaussians, SH 3, 1200x680, tools/bench_room.py):
       the live count rises, the statistics are zero after it, and the next
       step is finite.
 
+On a card with an NCCL group every rank also runs (a)-(d) through its
+StepGraphs (mapper/trainer.py: one captured graph a path and rank, the
+collectives inside it) from the same start as the op-by-op call, and
+reports under "graphed" per path whether the two are bit-equal (every
+tensor of the map, its Adam state and the metrics), their largest
+difference, the ms of each timed in turns (eager, graphed, graphed,
+eager), the device ms of the NCCL kernels in a torch.profiler trace of
+the graphed calls, and the captures. A gloo group runs op by op only
+(its collectives cannot be captured).
+
 Every rank builds the room from its seed. The single-process references
 and times run on rank 0 while the other ranks wait; each reference step
 runs twice, and its "ref_spread" is how far the two differ (0: the entry
@@ -42,7 +52,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from photo_slam_tpu_torch.mapper.trainer import train_step
+from photo_slam_tpu_torch.mapper.trainer import StepGraphs, train_step
 from photo_slam_tpu_torch.models import gaussian_model as gm
 from photo_slam_tpu_torch.models import optimizer as optim
 from photo_slam_tpu_torch.ops import binning, blend, losses
@@ -191,6 +201,64 @@ def collective_ms(fn, device) -> dict:
             for k, v in prof.summary().items() if k.startswith("collective.")}
 
 
+def in_turns_ms(eager, graphed, device) -> dict:
+    """ms per call of eager() and graphed(), each timed twice in the order
+    eager, graphed, graphed, eager (ms_per_call)."""
+    out = {"eager_ms": [], "graphed_ms": []}
+    for name in ("eager", "graphed", "graphed", "eager"):
+        out[f"{name}_ms"].append(ms_per_call(
+            eager if name == "eager" else graphed, device))
+    return out
+
+
+def nccl_trace_ms(fn, device, calls: int = PROFILED) -> dict:
+    """Device ms per call in the NCCL kernels of a torch.profiler trace of
+    `calls` calls of fn() (the kernels of a graph's replay included), and
+    their names. The Profiler's spans cannot time a graphed collective:
+    they wait for the card, which a capture forbids."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize(device)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize(device)
+    ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    nccl = [e for e in ops if "nccl" in e.name.lower()]
+    return {"ms": sum(e.time_range.end - e.time_range.start
+                      for e in nccl) / calls / 1e3,
+            "kernels": sorted({e.name[:60] for e in nccl}),
+            "device_ops": len(ops) / calls}
+
+
+def twin_diff(graphed, eager) -> dict:
+    """Whether two sequences of tensors are bit-equal pair by pair, and
+    their largest absolute difference."""
+    worst = 0.0
+    for a, b in zip(graphed, eager):
+        if not torch.equal(a, b):
+            d = (a.double() - b.double()).abs().nan_to_num(nan=float("inf"))
+            worst = max(worst, float(d.max()))
+    return {"bit_equal": len(graphed) == len(eager) and all(
+        torch.equal(a, b) for a, b in zip(graphed, eager)),
+            "max_abs_diff": worst}
+
+
+def step_tensors(state, opt, met) -> list:
+    """Every tensor of a step's result: the map, its Adam state and the
+    metrics (by name)."""
+    return [*state.params, *state[1:], *opt.m, *opt.v, opt.step,
+            *(met[k] for k in sorted(met))]
+
+
+def clone_adam(opt: optim.AdamState) -> optim.AdamState:
+    return optim.AdamState(*(type(g)(*(x.clone() for x in g))
+                             for g in opt[:2]), opt.step.clone())
+
+
 def on_rank0(rank: int, group, fn):
     """fn() on rank 0 alone while the other ranks wait (the single-process
     references and times); its result on rank 0, None elsewhere."""
@@ -214,7 +282,11 @@ def room_rank(rank: int, world: int, cfg: dict) -> dict:
     bg = torch.zeros(3, device=dev)
     lrs = optim.LearningRates.create(*LRS)
     cam = camera(0.0, dev)
-    out = {"band_rows": sharding.band_rows(HEIGHT, world)}
+    out = {"band_rows": sharding.band_rows(HEIGHT, world), "graphed": {}}
+    # The graph route: a card with a group whose collectives a graph can
+    # capture (NCCL).
+    graphed = (dev.type == "cuda" and str(dist.get_backend(group))
+               in sharding.CAPTURABLE_BACKENDS)
 
     # (a) The tile-band render.
     base = room(dev)
@@ -252,6 +324,21 @@ def room_rank(rank: int, world: int, cfg: dict) -> dict:
                     "finite": bool(torch.isfinite(img_prod).all())}
 
         out["render"] = on_rank0(rank, group, render_refs)
+        if graphed:
+            sg_render = StepGraphs()
+
+            def gband(s):
+                return sg_render.render_image_sharded(
+                    group, *view, s, bg, shs=shs, live_mask=state.live)
+
+            g = twin_diff([count(lambda: gband(prod)).clone()], [img_prod])
+            if cfg["time"]:
+                g.update(in_turns_ms(lambda: count(lambda: band(prod)),
+                                     lambda: count(lambda: gband(prod)),
+                                     dev))
+                g["nccl"] = nccl_trace_ms(lambda: gband(prod), dev)
+            out["graphed"]["render"] = {**g, "captures": sg_render.captures}
+            del sg_render
         if cfg["time"]:
             out["render_ms"] = ms_per_call(lambda: count(lambda: band(prod)),
                                            dev)
@@ -277,6 +364,17 @@ def room_rank(rank: int, world: int, cfg: dict) -> dict:
             profiler=profiler))
 
     st, o, met = vstep(gm.clone_state(state), optim.init_adam(state.params))
+    if graphed:
+        sg_view = StepGraphs()
+
+        def gvstep(st, o):
+            return count(lambda: sg_view.train_step_batched(
+                st, o, *local, lrs, bg, LAMBDA_DSSIM, prod, group=group))
+
+        gst, go, gmet = gvstep(gm.clone_state(state),
+                               optim.init_adam(state.params))
+        out["graphed"]["view"] = twin_diff(step_tensors(gst, go, gmet),
+                                           step_tensors(st, o, met))
 
     def view_ref():
         def one():
@@ -301,6 +399,14 @@ def room_rank(rank: int, world: int, cfg: dict) -> dict:
             dev))
         out["view_collective_ms"] = collective_ms(
             lambda p: vstep(st, o, p), dev)
+        if graphed:
+            out["graphed"]["view"].update(in_turns_ms(
+                lambda: vstep(st, o), lambda: gvstep(gst, go), dev))
+            out["graphed"]["view"]["nccl"] = nccl_trace_ms(
+                lambda: gvstep(gst, go), dev)
+    if graphed:
+        out["graphed"]["view"]["captures"] = sg_view.captures
+        del gst, go, sg_view
     del st, o, state
 
     # (c) The Gaussian-sharded step on the dealt map, C/n rows a rank.
@@ -315,7 +421,19 @@ def room_rank(rank: int, world: int, cfg: dict) -> dict:
             st, o, cam, gt, mask, lrs, bg, LAMBDA_DSSIM, s, group,
             profiler=profiler))
 
+    if graphed:
+        sg_gp = StepGraphs()
+
+        def ggstep(s, st, o):
+            return count(lambda: sg_gp.train_step_gaussian_sharded(
+                st, o, cam, gt, mask, lrs, bg, LAMBDA_DSSIM, s, group))
+
+        g_loc, g_opt, g_met = ggstep(exact, gm.clone_state(loc),
+                                     clone_adam(loc_opt))
     loc, loc_opt, met = gstep(exact, loc, loc_opt)
+    if graphed:
+        out["graphed"]["gp"] = twin_diff(step_tensors(g_loc, g_opt, g_met),
+                                         step_tensors(loc, loc_opt, met))
     got, got_opt = sharding.gather_gaussian_state(group, loc, loc_opt)
 
     def gp_ref():
@@ -345,6 +463,15 @@ def room_rank(rank: int, world: int, cfg: dict) -> dict:
                                LAMBDA_DSSIM, prod), dev))
         out["gp_collective_ms"] = collective_ms(
             lambda p: gstep(prod, loc, loc_opt, p), dev)
+        if graphed:
+            out["graphed"]["gp"].update(in_turns_ms(
+                lambda: gstep(prod, loc, loc_opt),
+                lambda: ggstep(prod, g_loc, g_opt), dev))
+            out["graphed"]["gp"]["nccl"] = nccl_trace_ms(
+                lambda: ggstep(prod, g_loc, g_opt), dev)
+    if graphed:
+        out["graphed"]["gp"]["captures"] = sg_gp.captures
+        del g_loc, g_opt, sg_gp
     del full, full_opt, loc, loc_opt
 
     # (d) Densify on the sharded map, grown twofold (the room fills its
@@ -359,9 +486,36 @@ def room_rank(rank: int, world: int, cfg: dict) -> dict:
         noise = torch.randn((2, loc.capacity, 3), device=dev,
                             generator=torch.Generator(device=dev)
                             .manual_seed(1 + rank))
-        loc, loc_opt, info = count(
-            lambda: sharding.densify_step_gaussian_sharded(
-                loc, loc_opt, noise, cfg["extent"], group=group, **DENSIFY))
+        if graphed:
+            sg_dn = StepGraphs()
+
+            def gdensify(st, o):
+                return count(lambda: sg_dn.densify_step_gaussian_sharded(
+                    st, o, noise, cfg["extent"], group=group, **DENSIFY))
+
+            g_loc, g_opt, g_info = gdensify(gm.clone_state(loc),
+                                            clone_adam(loc_opt))
+
+        def densify(st, o):
+            return count(lambda: sharding.densify_step_gaussian_sharded(
+                st, o, noise, cfg["extent"], group=group, **DENSIFY))
+
+        if graphed and cfg["time"]:
+            # The op-by-op densify timed on a copy (each call densifies
+            # the map it is given again), in turns with the graphed one.
+            e_loc, e_opt = gm.clone_state(loc), clone_adam(loc_opt)
+        loc, loc_opt, info = densify(loc, loc_opt)
+        if graphed:
+            out["graphed"]["densify"] = twin_diff(
+                step_tensors(g_loc, g_opt, g_info._asdict()),
+                step_tensors(loc, loc_opt, info._asdict()))
+            if cfg["time"]:
+                out["graphed"]["densify"].update(in_turns_ms(
+                    lambda: densify(e_loc, e_opt),
+                    lambda: gdensify(g_loc, g_opt), dev))
+                del e_loc, e_opt
+            out["graphed"]["densify"]["captures"] = sg_dn.captures
+            del g_loc, g_opt, sg_dn
         stats_max = max(float(loc.xyz_grad_accum.abs().max()),
                         float(loc.denom.abs().max()),
                         float(loc.max_radii2d.abs().max()))

@@ -1,7 +1,7 @@
 """Captured CUDA graphs: the port's counterpart of jax.jit.
 
 A `GraphCache` holds the captured `torch.cuda.CUDAGraph`s of one owner (the
-render service, one trainer's steps), keyed as jit's static arguments are:
+render service, one map's StepGraphs), keyed as jit's static arguments are:
 the caller's key (the render settings, flags), the shapes, dtypes and
 device of the inputs, the addresses of the resident tensors, and the
 float32 math flags (TF32), which a graph freezes. It is an
@@ -32,6 +32,17 @@ then captures it with capture_error_mode="thread_local": other threads
 calls meanwhile. A capture that fails raises; nothing falls back to eager
 dispatch. On tensors that are not on a CUDA device the cache calls the
 function directly: the port's plain route, which the CPU tests run.
+`tracing()` says whether the calling thread is inside a warm-up or a
+capture, so a test can tell the calls a graph records from op-by-op ones.
+
+What runs through a GraphCache: ops/render.py::render_jit (the serving
+renders) and mapper/trainer.py::StepGraphs, which holds one map resident
+and replays on it train_step, train_chunk, the B-view step, densify and
+prune, the opacity reset, the two map transforms, and, on a card whose
+process group is NCCL, the multi-process functions of parallel/sharding.py
+with their collectives inside the graph (one capture per rank). A gloo
+group cannot be captured: the graph route refuses it on a card
+(sharding.graph_route) rather than dispatching op by op in its place.
 
 Kernel wrappers count their launches (`wrapper.launches`) through
 `count_launch`: a launch made while the current stream captures goes to
@@ -51,6 +62,15 @@ GRAPH_CACHE_SIZE = 64
 
 # Raw stream handle -> {wrapper: launches} of the capture running on it.
 _capturing: dict[int, dict] = {}
+# Per thread: how deep it is inside GraphCache._capture (warm-up or
+# capture).
+_tracing = threading.local()
+
+
+def tracing() -> bool:
+    """Whether the calling thread is inside a GraphCache's warm-up or
+    capture of a function (not a replay, not a direct call)."""
+    return getattr(_tracing, "depth", 0) > 0
 
 
 def _current_stream_handle(device: torch.device) -> int:
@@ -141,6 +161,20 @@ class GraphCache:
                 del self._entries[k]
             self._drop_unused_inputs()
 
+    def input_buffer(self, position: int, shape: tuple, dtype,
+                     device: torch.device) -> torch.Tensor:
+        """The static buffer of fresh input `position` for tensors of this
+        shape, dtype and device (made empty when there is none yet): a
+        caller that fills it and passes it as that input saves the
+        replay's copy."""
+        with self._lock:
+            key = (position, tuple(shape), dtype, device)
+            buf = self._inputs.get(key)
+            if buf is None:
+                buf = self._inputs[key] = torch.empty(shape, dtype=dtype,
+                                                      device=device)
+            return buf
+
     def _drop_unused_inputs(self) -> None:
         used = {id(b) for e in self._entries.values()
                 for b in getattr(e, "fresh", ())}
@@ -216,6 +250,14 @@ class GraphCache:
             stream = self._streams.setdefault(dev.index,
                                               torch.cuda.Stream(dev))
         stream.wait_stream(torch.cuda.current_stream(dev))
+        _tracing.depth = getattr(_tracing, "depth", 0) + 1
+        try:
+            return self._warm_and_capture(fn, fresh, resident, dev, stream)
+        finally:
+            _tracing.depth -= 1
+
+    def _warm_and_capture(self, fn, fresh, resident, dev, stream
+                          ) -> Graphed:
         with torch.cuda.stream(stream):
             # The warm-up on scratch copies: nothing the caller holds
             # changes.

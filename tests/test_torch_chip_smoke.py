@@ -36,6 +36,8 @@ import chip_smoke as cs
 from photo_slam_tpu_torch.config import dataset_config
 from photo_slam_tpu_torch.mapper import mapper as mapper_mod
 from photo_slam_tpu_torch.mapper import mapping_ops
+from photo_slam_tpu_torch.models import gaussian_model as tgm
+from photo_slam_tpu_torch.models import optimizer as toptim
 from photo_slam_tpu_torch.models.keyframe import Keyframe
 from photo_slam_tpu_torch.ops import blend as blend_mod
 from photo_slam_tpu_torch.tools import bench_room, time_blend
@@ -681,7 +683,7 @@ def test_correction_op_helpers(sequence):
         m=type(mapper.trainer.opt_state.m)(*(
             torch.ones_like(x) for x in mapper.trainer.opt_state.m)))
     m = online_mods()
-    twin = cs.cpu_twin(torch, m, mapper)
+    twin = cs.twin_mapper(torch, m, mapper, "cpu")
     assert cs.map_rel_err(torch, mapper.trainer, twin.trainer) == 0.0
     assert twin.trainer.state.params.xyz is not mapper.trainer.state.params.xyz
 
@@ -1040,7 +1042,7 @@ def test_state_tensors_and_check_bit_equal():
                              sh_degree=1, capacity=32, device="cpu")
     opt = toptim.init_adam(st.params)
     a = cs.state_tensors(st, opt)
-    assert len(a) == 6 + 4 + 6 + 6 + 1
+    assert len(a) == 6 + 5 + 6 + 6 + 1
     cs.check_bit_equal(torch, "same", a, cs.state_tensors(
         tgm.clone_state(st), opt))
     moved = st._replace(denom=st.denom + 1.0)
@@ -1168,6 +1170,89 @@ def test_counting_calls_counts_and_puts_back():
         with cs.counting_calls({"grow_capacity": (gm, "grow_capacity")}):
             gm.grow_capacity(state, 2)
     assert gm.grow_capacity is grow
+
+
+def test_traced_calls_split_by_capture_and_check_only_traced():
+    """traced_calls counts each call inside a graph's warm-up or capture
+    (utils/graphs.tracing) apart from the calls outside, and puts the
+    functions back; check_only_traced refuses a call outside and a name
+    never traced."""
+    from photo_slam_tpu_torch.mapper import trainer as trainer_mod
+    from photo_slam_tpu_torch.models import transforms as xf
+    from photo_slam_tpu_torch.utils import graphs
+
+    m = {"trainer": trainer_mod, "xf": xf}
+    targets = cs.eager_targets(m)
+    saved = {k: getattr(mod, a) for k, (mod, a) in targets.items()}
+    assert all(callable(f) for f in saved.values())
+    events = cs.event_targets(m)
+    assert events == {
+        "densify": (trainer_mod.StepGraphs, "densify_step"),
+        "opacity_reset": (trainer_mod.StepGraphs, "opacity_reset_step")}
+    state = tgm.create_from_pcd(np.zeros((3, 3), np.float32),
+                                np.zeros((3, 3), np.float32), sh_degree=0,
+                                capacity=4, device="cpu")
+    opt = toptim.init_adam(state.params)
+    with cs.traced_calls(graphs, targets) as n:
+        trainer_mod.opacity_reset_step(state, opt)
+        assert not graphs.tracing()
+        graphs._tracing.depth = 1
+        try:
+            assert graphs.tracing()
+            trainer_mod.opacity_reset_step(state, opt)
+            trainer_mod.opacity_reset_step(state, opt)
+        finally:
+            graphs._tracing.depth = 0
+    assert n["opacity_reset_step"] == [2, 1]
+    assert n["densify_step"] == [0, 0]
+    assert {k: getattr(mod, a) for k, (mod, a) in targets.items()} == saved
+    with pytest.raises(AssertionError, match="outside"):
+        cs.check_only_traced("x", n)
+    n["opacity_reset_step"][1] = 0
+    cs.check_only_traced("x", n, need=("opacity_reset_step",))
+    with pytest.raises(AssertionError, match="never captured"):
+        cs.check_only_traced("x", n, need=("densify_step",))
+
+
+def test_densify_sizes_and_grown_map():
+    """densify_sizes reads max_screen_size off the densify graphs' keys;
+    grown_map pads the map and its moments to a larger capacity."""
+    from photo_slam_tpu_torch.models import gaussian_model as gm
+    from photo_slam_tpu_torch.utils.graphs import GraphCache
+
+    cache = GraphCache()
+    for screen in (20, 0):
+        key = ("densify_step", ("grad_threshold", 2e-4),
+               ("min_opacity", 0.005), ("max_screen_size", screen),
+               ("percent_dense", 0.01))
+        cache.entry((key, "cuda:0"), lambda: None)
+    cache.entry((("opacity_reset_step",), "cuda:0"), lambda: None)
+    assert cs.densify_sizes(cache) == [0, 20]
+    state = gm.create_from_pcd(np.random.RandomState(0).rand(5, 3).astype(
+        np.float32), np.zeros((5, 3), np.float32), sh_degree=1, capacity=8,
+        device="cpu")
+    opt = toptim.init_adam(state.params)
+    opt.m.xyz.fill_(2.0)
+    grown, gopt = cs.grown_map({"gm": gm, "optim": toptim}, state, opt, 32)
+    assert grown.capacity == 32 and int(grown.live.sum()) == 5
+    assert all(x.shape[0] == 32 for g in (gopt.m, gopt.v) for x in g)
+    assert float(gopt.m.xyz[:8].min()) == 2.0
+    assert not gopt.m.xyz[8:].any()
+    assert torch.equal(grown.params.xyz[:8], state.params.xyz)
+
+
+def test_second_scale_refinement_op():
+    """SCALE_OP2 is another scale, shift and a turn about y."""
+    op = cs.scale_refinement_op(online_mods(), cs.SCALE_OP2)
+    s, t, yaw = cs.SCALE_OP2
+    assert op.scale == s != cs.SCALE_OP[0]
+    T = op.transform
+    np.testing.assert_allclose(T[:3, 3], t, rtol=1e-6)
+    np.testing.assert_allclose(T[:3, :3] @ T[:3, :3].T, np.eye(3),
+                               atol=1e-6)
+    assert T[0, 2] == pytest.approx(np.sin(yaw), rel=1e-6)
+    assert np.allclose(cs.scale_refinement_op(online_mods()).transform[:3, :3],
+                       np.eye(3))
 
 
 def test_eager_graphs_calls_directly_and_puts_back():

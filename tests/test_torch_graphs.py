@@ -281,12 +281,25 @@ def test_train_chunk_matches_jax_train_chunk(route):
 
 
 class FunctionalRoute:
-    """The trainer's step route before the graphs: functional_step."""
+    """The trainer's route before the graphs: functional_step, and densify
+    and the opacity reset as new tensors (the extent a 0-d tensor, as
+    StepGraphs passes it)."""
 
     captures = 0
 
     def train_step(self, *args, **kw):
         return functional_step(*args, **kw)
+
+    def split_noise(self, capacity, device):
+        return torch.empty((2, capacity, 3), device=device)
+
+    def densify_step(self, state, opt_state, noise, extent, **kw):
+        return ttrainer.densify_step(state, opt_state, noise,
+                                     torch.tensor(extent, dtype=torch.float32),
+                                     **kw)
+
+    def opacity_reset_step(self, state, opt_state):
+        return ttrainer.opacity_reset_step(state, opt_state)
 
     def drop(self):
         pass
