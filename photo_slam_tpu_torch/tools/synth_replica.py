@@ -12,14 +12,19 @@ By default the frames carry the sensor model of bench.py::corrupt_frame
 
 `SynthReplica` holds the whole sequence in host memory and is a dataset
 for apps/online_slam.run_online (`camera`, `frames()`), so the sequence
-needs no image files: the machine with the card has no image library.
+needs no image files and no image library.
 `write()` writes the Replica layout (results/frame*.jpg, depth*.png,
 traj.txt) for the CLI apps; where neither cv2 nor PIL (a JPEG encoder)
 imports, the frames are frame*.png, which the loader globs alike.
+`write_tum()` writes the same frames in the TUM RGB-D layout (rgb/ and
+depth/ PNGs, rgb.txt, depth.txt, groundtruth.txt) for `online_slam
+tum_rgbd` and `tum_mono`, which take the camera (`replica_camera(width,
+height)`) through --fx --fy --cx --cy --width --height.
 
 Usage:
   python -m photo_slam_tpu_torch.tools.synth_replica <out_dir> \
-      [--frames 120] [--width 1200] [--height 680] [--clean] [--device cuda]
+      [--frames 120] [--width 1200] [--height 680] [--clean] [--tum] \
+      [--device cuda]
 """
 from __future__ import annotations
 
@@ -30,7 +35,8 @@ import numpy as np
 import torch
 
 from photo_slam_tpu_torch.io.datasets import (REPLICA_CAMERA,
-                                              REPLICA_DEPTH_SCALE)
+                                              REPLICA_DEPTH_SCALE,
+                                              TUM_DEPTH_SCALE)
 from photo_slam_tpu_torch.io.images import read_png
 from photo_slam_tpu_torch.models.camera import PINHOLE, Camera
 from photo_slam_tpu_torch.ops.camera_math import build_camera_matrices
@@ -43,6 +49,8 @@ CYL_R = 5.0
 N_SPLATS = 60_000
 WORLD_SEED = 3
 SENSOR_SEED = 99
+TUM_T0 = 1305031102.175304   # write_tum's first stamp (s), a TUM-like one
+TUM_HZ = 30.0
 
 
 # ---------------------------------------------------------------------------
@@ -228,18 +236,58 @@ class SynthReplica:
             images.save_image_chw(
                 results / (name if encoder else name.with_suffix(".png")),
                 fr.image)
-            d16 = np.clip(fr.depth * REPLICA_DEPTH_SCALE, 0,
-                          65535).astype(np.uint16)
-            path = str(results / f"depth{i:06d}.png")
-            if images.cv2 is not None:
-                images.cv2.imwrite(path, d16)
-            elif images.Image is not None:
-                images.Image.fromarray(d16).save(path)
-            else:
-                images.write_png(path, d16)
+            images.write_png(results / f"depth{i:06d}.png",
+                             depth_units(fr.depth, REPLICA_DEPTH_SCALE))
         np.savetxt(out / "traj.txt",
                    np.stack([c.reshape(-1) for c in self.c2w]))
         return out
+
+    def write_tum(self, out_dir) -> Path:
+        """The TUM RGB-D layout under out_dir: rgb/<stamp>.png (8-bit RGB),
+        depth/<stamp>.png (16 bit, TUM_DEPTH_SCALE units per meter), each
+        listed with its stamp in rgb.txt and depth.txt, and
+        groundtruth.txt (stamp tx ty tz qx qy qz qw, camera-to-world, at
+        the RGB stamps). The frames are TUM_HZ apart from TUM_T0; a depth
+        stamp lies tum_depth_offset(i) after its RGB stamp, so the loader's
+        association has to pick the nearest. groundtruth.txt holds every
+        number to full precision; the lists give stamps to the microsecond,
+        as TUM's do."""
+        from photo_slam_tpu_torch.io import images
+
+        out = Path(out_dir)
+        for sub in ("rgb", "depth"):
+            (out / sub).mkdir(parents=True, exist_ok=True)
+        head = "# {} written by photo_slam_tpu_torch.tools.synth_replica\n"
+        rgb, depth, gt = ([head.format(k)] for k in ("rgb", "depth",
+                                                      "groundtruth"))
+        for i, fr in enumerate(self._frames):
+            t = TUM_T0 + i / TUM_HZ
+            td = t + tum_depth_offset(i)
+            images.save_image_chw(out / "rgb" / f"{t:.6f}.png", fr.image)
+            images.write_png(out / "depth" / f"{td:.6f}.png",
+                             depth_units(fr.depth, TUM_DEPTH_SCALE))
+            rgb.append(f"{t:.6f} rgb/{t:.6f}.png\n")
+            depth.append(f"{td:.6f} depth/{td:.6f}.png\n")
+            c2w = self.c2w[i]
+            qw, qx, qy, qz = rotmat_to_quat_numpy(c2w[:3, :3])
+            gt.append(" ".join(repr(float(x)) for x in (
+                t, *c2w[:3, 3], qx, qy, qz, qw)) + "\n")
+        for name, lines in (("rgb", rgb), ("depth", depth),
+                            ("groundtruth", gt)):
+            (out / f"{name}.txt").write_text("".join(lines))
+        return out
+
+
+def depth_units(depth_m: np.ndarray, scale: float) -> np.ndarray:
+    """Metric depth [H, W] as the 16-bit units a depth PNG holds."""
+    return np.clip(depth_m * scale, 0, 65535).astype(np.uint16)
+
+
+def tum_depth_offset(i: int) -> float:
+    """Seconds from frame i's RGB stamp to its depth stamp in write_tum:
+    2-8 ms, within the loader's 20 ms association window and far nearer
+    its own RGB frame than the next (1 / TUM_HZ away)."""
+    return 0.002 + 0.001 * (i % 7)
 
 
 def main(argv=None):
@@ -250,6 +298,9 @@ def main(argv=None):
     ap.add_argument("--height", type=int, default=680)
     ap.add_argument("--clean", action="store_true",
                     help="the raw renders, without the sensor model")
+    ap.add_argument("--tum", action="store_true",
+                    help="write the TUM RGB-D layout (write_tum) and print "
+                         "the camera flags of the TUM apps")
     ap.add_argument("--device", default="cuda",
                     help="torch device to render on (default: cuda)")
     args = ap.parse_args(argv)
@@ -257,7 +308,17 @@ def main(argv=None):
 
     seq = SynthReplica(args.frames, args.width, args.height,
                        device=cli_device(args.device), clean=args.clean)
-    print(f"wrote {len(seq)} frames -> {seq.write(args.out)}")
+    out = seq.write_tum(args.out) if args.tum else seq.write(args.out)
+    print(f"wrote {len(seq)} frames -> {out}")
+    if args.tum:
+        print("camera flags: " + " ".join(tum_camera_flags(seq.camera)))
+
+
+def tum_camera_flags(cam: Camera) -> list:
+    """The `online_slam tum_rgbd|tum_mono` options that give it `cam`."""
+    return ["--fx", repr(cam.fx), "--fy", repr(cam.fy), "--cx",
+            repr(cam.cx), "--cy", repr(cam.cy), "--width", str(cam.width),
+            "--height", str(cam.height)]
 
 
 if __name__ == "__main__":

@@ -11,7 +11,10 @@ X2's bound at the card's issue rates, against hand-worked numbers;
 sass_loop_counts, the count of a main loop's instructions by class that
 checks X2_SASS, on a listing in cuobjdump's layout; and
 the online phase's helpers: its in-memory sequence (tools/synth_replica.py)
-and the correction ops it makes and its CPU twin; and the euroc phase's:
+and the correction ops it makes and its CPU twin; and the mono and tum
+phases': the method log, the mono harvest's count of points, the scale of
+the similarity alignment, the SE3-aligned ATE and the TUM tree read back;
+and the euroc phase's:
 the gravity angle, the share of disparities near the truth, the sgm
 kernel's bound and its row of the `kernels` line; and the viewer and
 batched phases': the stages of a /render request, the client run at a
@@ -740,6 +743,12 @@ def test_trajectory_ate(sequence):
         T[:3, 3] += T[:3, :3] @ np.array([0.01, 0.0, 0.0])
     assert 0.003 < cs.trajectory_ate(noisy, gt) < 0.01
     assert cs.SLAM_ATE_M == 0.05
+    # The rigid alignment (a metric sensor's) does not align a scale away,
+    # but does a rigid motion.
+    assert cs.trajectory_ate(moved, gt, with_scale=False) > 0.1
+    rigid = [T @ np.linalg.inv(np.vstack([S[:3] / 2.0, [0, 0, 0, 1]]))
+             for T in gt]
+    assert cs.trajectory_ate(rigid, gt, with_scale=False) < 1e-9
 
 
 def test_keypoint_agreement():
@@ -769,6 +778,97 @@ def test_keypoint_agreement():
     assert cs.keypoint_agreement(a, d)[0] == pytest.approx(
         1 - 1 / len(a.px))
     assert cs.ms_stats([0.001, 0.002]).startswith("1.500 / ")
+
+
+# ---------------------------------------------------------------------------
+# The mono and tum phases' helpers: the method log, the harvest's count of
+# points, the similarity's scale and the TUM tree read back.
+# ---------------------------------------------------------------------------
+
+def test_logged_calls():
+    class Box:
+        def __init__(self):
+            self.n = 0
+
+        def add(self, k):
+            if k < 0:
+                raise ValueError(k)
+            self.n += k
+            return self.n
+
+    saved = Box.add
+    box = Box()
+    with cs.logged_calls(Box, "add", lambda obj, a, out, sec, n0: (
+            a, out, obj.n - n0, sec >= 0), lambda obj: obj.n) as calls:
+        box.add(2)
+        box.add(k=3)
+        with pytest.raises(ValueError):
+            box.add(-1)
+    assert calls == [((2,), 2, 2, True), ((), 5, 3, True)]
+    assert Box.add is saved
+    with pytest.raises(RuntimeError):
+        with cs.logged_calls(Box, "add", lambda *a: None):
+            raise RuntimeError
+    assert Box.add is saved
+
+
+@pytest.mark.parametrize("max_depth_cached", [10, 1])
+def test_harvest_calls_count_the_mono_harvest(sequence, max_depth_cached):
+    """harvest_calls counts the points each keyframe's harvest adds, also
+    when the depth cache is flushed into the map's cached points: the GT
+    tracker's mono drive with depth in stripes, so that half the keypoints
+    borrow a neighbour's depth (mono_neighbor_densify)."""
+    cfg = dataset_config("replica_mono")
+    cfg.mapper.max_depth_cached = max_depth_cached
+    mapper = mapper_mod.GaussianMapper(cfg, mapper_mod.SensorType.MONOCULAR,
+                                       device="cpu")
+    mapper.add_camera(sequence.camera)
+    stripes = (np.arange(sequence.camera.width) // 8) % 2 == 1
+    frames = [fr.__class__(**{**fr.__dict__,
+                              "depth": np.where(stripes, fr.depth, 0.0)})
+              for fr in sequence.frames()]
+    ops = []
+    GroundTruthTracker(sequence.camera, keyframe_every=5,
+                       num_keypoints=400).run(iter(frames), ops.append)
+    for op in ops:
+        mapper.queue.push(op)
+    with cs.harvest_calls(mapper_mod.GaussianMapper) as calls:
+        mapper.combine_mapping_operations()
+    assert [fid for fid, _, _ in calls] == [0, 1, 2, 3]
+    rows = [n for _, n, _ in calls]
+    assert all(n > 0 for n in rows) and all(s > 0 for _, _, s in calls)
+    if max_depth_cached == 10:
+        assert rows == [len(p) for p in mapper._depth_cache_pts]
+    else:
+        assert not mapper._depth_cache_pts
+        cached = sum(len(p) for p in mapper._cached_points)
+        assert sum(rows) == cached - sum(len(op.points) for op in ops)
+
+
+def test_trajectory_scale(sequence):
+    gt = [cs_math.se3_matrix(f.quat_wxyz, f.trans)
+          for f in sequence.frames()]
+    assert cs.trajectory_scale(gt, gt) == pytest.approx(1.0, abs=1e-12)
+    # A map in units of 2.5 m: centres and translations divided by 2.5.
+    small = [np.vstack([np.hstack([T[:3, :3], T[:3, 3:] / 2.5]),
+                        [0, 0, 0, 1]]) for T in gt]
+    assert cs.trajectory_scale(small, gt) == pytest.approx(2.5, rel=1e-9)
+    assert cs.trajectory_ate(small, gt) < 1e-9
+
+
+def test_tum_readback(sequence, tmp_path):
+    """write_tum's tree reads back whole: every frame associated, the
+    depth to the unit, the poses; a depth map one unit off shows."""
+    from photo_slam_tpu_torch.io import datasets, images
+
+    m = dict(synth_replica=synth_replica, datasets=datasets,
+             se3_matrix=cs_math.se3_matrix)
+    root = sequence.write_tum(tmp_path / "tum")
+    pairs, units, pose = cs.tum_readback(m, sequence, root)
+    assert (pairs, units) == (20, 0) and pose < 1e-9
+    _, (name,) = datasets._read_tum_list(root / "depth.txt")[3]
+    images.write_png(root / name, images.read_png(root / name) + 1)
+    assert cs.tum_readback(m, sequence, root)[1] == 1
 
 
 # ---------------------------------------------------------------------------
