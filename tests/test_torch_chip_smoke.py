@@ -12,7 +12,8 @@ sass_loop_counts, the count of a main loop's instructions by class that
 checks X2_SASS, on a listing in cuobjdump's layout; and
 the online phase's helpers: its in-memory sequence (tools/synth_replica.py)
 and the correction ops it makes and its CPU twin; and the mono and tum
-phases': the method log, the mono harvest's count of points, the scale of
+phases': the method log, the two-view calls' log and line, the mono
+harvest's count of points, the scale of
 the similarity alignment, the SE3-aligned ATE and the TUM tree read back;
 and the euroc phase's:
 the gravity angle, the share of disparities near the truth, the sgm
@@ -47,6 +48,7 @@ from photo_slam_tpu_torch.tools import bench_room, time_blend
 from photo_slam_tpu_torch.tools import exp_blend16 as tx4
 from photo_slam_tpu_torch.tools import exp_blend_bf16 as tx1
 from photo_slam_tpu_torch.tools import synth_replica
+from photo_slam_tpu_torch.tracking import vision
 from photo_slam_tpu_torch.tracking.gt_tracker import GroundTruthTracker
 from photo_slam_tpu_torch.utils import math as cs_math
 from test_torch_blend import one_torch_thread, packed_tiles  # noqa: F401
@@ -810,6 +812,38 @@ def test_logged_calls():
         with cs.logged_calls(Box, "add", lambda *a: None):
             raise RuntimeError
     assert Box.add is saved
+
+
+def test_two_view_calls_and_summary():
+    """two_view_calls logs each find_essential_mat call (seconds, inliers,
+    matches) and each recover_pose's count, through the module attribute
+    the frontend calls, and puts both functions back; two_view_summary
+    prints them."""
+    rng = np.random.default_rng(4)
+    K = np.array([[300.0, 0.0, 160.0], [0.0, 300.0, 120.0], [0, 0, 1]])
+    X = np.stack([rng.uniform(-2, 2, 120), rng.uniform(-1.5, 1.5, 120),
+                  rng.uniform(4, 6, 120)], 1)
+    R, t = vision.rodrigues([0.0, 0.05, 0.0]), np.array([0.3, 0.0, 0.05])
+    p0 = X[:, :2] / X[:, 2:] * 300.0 + K[:2, 2]
+    Xc = X @ R.T + t
+    p1 = Xc[:, :2] / Xc[:, 2:] * 300.0 + K[:2, 2]
+    p1[:20] = rng.uniform([0, 0], [320, 240], (20, 2))
+    saved = vision.find_essential_mat, vision.recover_pose
+    with cs.two_view_calls(vision) as (essential, poses):
+        E, mask = vision.find_essential_mat(p0, p1, K, prob=0.999,
+                                            threshold=1.0)
+        n_ok = vision.recover_pose(E, p0, p1, K, mask=mask)[0]
+        assert vision.find_essential_mat(p0[:4], p1[:4], K) == (None, None)
+    assert (vision.find_essential_mat, vision.recover_pose) == saved
+    assert [(n, m) for _, n, m in essential] == [
+        (int(mask.sum()), 120), (0, 4)]
+    assert all(sec > 0 for sec, _, _ in essential)
+    assert poses == [n_ok] and 90 <= n_ok <= 100
+    line = cs.two_view_summary(essential, poses)
+    assert line.startswith("find_essential_mat 2 calls, ")
+    assert f"inliers [{int(mask.sum())}, 0] of [120, 4] matches" in line
+    assert line.endswith(f"recover_pose n_ok [{n_ok}]")
+    assert cs.two_view_summary([], []) == "find_essential_mat not called"
 
 
 @pytest.mark.parametrize("max_depth_cached", [10, 1])

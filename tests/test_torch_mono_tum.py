@@ -339,11 +339,11 @@ def mono_trackers(root):
 
 
 def test_replica_mono_own_vision_tracks_the_pan(slam_room):
-    """The port's own vision (ORB in torch, 8-point essential matrix with
-    MSAC, its PnP) initializes on the pan and tracks every later frame, as
-    JAX's OpenCV does on the same frames. Their ATEs are not compared
-    here: both miss 5 cm on the full pan (ROADMAP Queue 3; `python
-    tests/test_torch_mono_tum.py` prints them)."""
+    """The port's own vision (ORB in torch, the five-point essential
+    matrix in RANSAC on OpenCV's scoring, its PnP) initializes on the pan
+    and tracks every later frame, as JAX's OpenCV does on the same frames.
+    Their ATEs are not compared here: both miss 5 cm on the full pan
+    (ROADMAP Queue 3; `python tests/test_torch_mono_tum.py` prints them)."""
     for name, (fe, gt) in mono_trackers(slam_room).items():
         assert len(fe.trajectory) == len(gt) == SLAM_FRAMES, name
         assert len(fe.map.keyframes) >= 3 and fe.lost_frames == 0, name
