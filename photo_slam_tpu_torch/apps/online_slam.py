@@ -41,9 +41,25 @@ from photo_slam_tpu_torch.mapper.mapper import GaussianMapper, SensorType
 from photo_slam_tpu_torch.models.camera import PINHOLE, Camera
 from photo_slam_tpu_torch.tracking.gt_tracker import GroundTruthTracker
 from photo_slam_tpu_torch.utils.evaluate import ate_rmse
-from photo_slam_tpu_torch.utils.math import se3_inverse, se3_matrix
+from photo_slam_tpu_torch.utils.math import (rotmat_to_quat_numpy,
+                                             se3_inverse, se3_matrix)
 from photo_slam_tpu_torch.utils.profiling import device_memory_stats
 from photo_slam_tpu_torch.utils.trajectory import save_all_formats
+
+
+def save_trajectory_tum(path, keyframes) -> None:
+    """Camera trajectory in TUM format: t tx ty tz qx qy qz qw (camera-to-
+    world), the format the reference's trajectory savers emit for
+    evaluation (reference: ORB-SLAM3/src/System.cc SaveTrajectoryTUM)."""
+    lines = []
+    for fid, kf in sorted(keyframes.items()):
+        twc = se3_inverse(se3_matrix(kf.quat, kf.trans))
+        q = rotmat_to_quat_numpy(twc[:3, :3])
+        t = twc[:3, 3]
+        lines.append(f"{fid} {t[0]:.6f} {t[1]:.6f} {t[2]:.6f} "
+                     f"{q[1]:.6f} {q[2]:.6f} {q[3]:.6f} {q[0]:.6f}")
+    Path(path).parent.mkdir(parents=True, exist_ok=True)
+    Path(path).write_text("\n".join(lines) + "\n")
 
 
 def _make_tracker(frontend: str, dataset, sensor: SensorType,

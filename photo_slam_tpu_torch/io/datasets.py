@@ -13,6 +13,7 @@ its images through io/images.py, so it needs neither cv2 nor PIL.
 from __future__ import annotations
 
 import re
+from dataclasses import dataclass
 from pathlib import Path
 from typing import Iterator, Optional
 
@@ -26,6 +27,13 @@ from photo_slam_tpu_torch.tracking.imu import ImuCalib
 from photo_slam_tpu_torch.utils.math import (quat_to_rotmat_numpy,
                                              rotmat_to_quat_numpy,
                                              se3_inverse)
+
+
+@dataclass
+class SequenceInfo:
+    camera: Camera
+    num_frames: int
+    depth_scale: float = 1.0
 
 
 # ---------------------------------------------------------------------------

@@ -93,3 +93,11 @@ class Keyframe:
         if level >= len(self.pyramid):
             return self.image
         return self.pyramid[level]
+
+    @property
+    def image_width(self) -> int:
+        return self.camera.width
+
+    @property
+    def image_height(self) -> int:
+        return self.camera.height

@@ -108,6 +108,11 @@ def sh_to_rgb(degree: int, shs: torch.Tensor, means: torch.Tensor,
     return torch.clamp_min(rgb, 0.0)
 
 
+def sh_to_rgb_dc(sh: torch.Tensor) -> torch.Tensor:
+    """DC SH coefficient -> RGB (reference: include/sh_utils.h SH2RGB)."""
+    return sh * SH_C0 + 0.5
+
+
 def rgb_to_sh(rgb: torch.Tensor) -> torch.Tensor:
     """RGB in [0,1] -> DC SH coefficient (reference: include/sh_utils.h RGB2SH)."""
     return (rgb - 0.5) / SH_C0

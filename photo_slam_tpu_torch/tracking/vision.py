@@ -21,25 +21,30 @@ OpenCV's versions):
     winner refit on its inliers; recoverPose's four decompositions through
     OpenCV's own Jacobi SVD (so ties go as OpenCV's do) and the cheirality
     test by triangulation;
-  * orb_detect_and_compute: ORB with cv2.ORB_create's defaults, in plain
-    torch on a given device;
+  * orb_detect_and_compute: cv2.ORB_create(nfeatures).detectAndCompute,
+    in plain torch on a given device, with OpenCV's learned test pairs;
   * stereo_rectify, init_undistort_rectify_map, remap_linear: the EuRoC
     loader's rectification (cv2.stereoRectify with CALIB_ZERO_DISPARITY
     and alpha 0, initUndistortRectifyMap, remap with INTER_LINEAR), with
     undistort_points (cv2.undistortPoints' five fixed-point iterations).
 
 Every random draw comes from an np.random.Generator seeded per call, so a
-run repeats exactly. ORB computes in integers wherever OpenCV does (the
-pyramid's fixed-point bilinear, FAST, the Harris sums, the intensity
-centroid, the smoothed level), so the card and the CPU find the same
-keypoints; only the orientation goes through a float atan2.
+run repeats exactly.
 
-ORB's 256 test pairs are not OpenCV's learned table (`bit_pattern_31_`,
-which this repository does not carry): they are drawn once from a fixed
-seed, both points of a pair isotropic Gaussian with sigma = 31/5, rounded
-and clipped to the 31x31 patch (BRIEF's G II), and stored below as
-BRIEF_PATTERN. The port's descriptors therefore differ bit-wise from
-OpenCV's; keypoints, responses and orientations agree.
+ORB returns what OpenCV's does: the same keypoints (level and float32
+point), float32 responses and angles, and descriptors bit for bit; only
+the order within a level differs (raster order here, std::nth_element's
+inside OpenCV). It computes in integers wherever OpenCV does (the
+pyramid's fixed-point bilinear, FAST, the Harris sums, the intensity
+centroid) and elsewhere follows OpenCV's float32 arithmetic op by op: the
+float scale factor 1.2f and its powers, the Harris response, fastAtan2's
+polynomial, the level blur's separable float filter with the fused
+multiply-adds of OpenCV's vector build (emulated exactly in float64), and
+the steering of the 256 learned tests. Each of those is a chain of single
+elementwise torch ops, each rounded once as IEEE prescribes, with no op
+that could contract a multiply and an add (nor a convolution, whose
+summation order a library picks), so the card and the CPU agree bit for
+bit.
 """
 from __future__ import annotations
 
@@ -1040,103 +1045,153 @@ def remap_linear(img: np.ndarray, map_x: np.ndarray,
 # ---------------------------------------------------------------------------
 
 ORB_LEVELS = 8
-ORB_SCALE = 1.2
+ORB_SCALE = np.float32(1.2)  # ORB::create's float scaleFactor, 1.2f
 EDGE_THRESHOLD = 31          # keypoints at least this far from a level's edge
 PATCH_SIZE = 31
 FAST_THRESHOLD = 20
 HARRIS_BLOCK = 7
-HARRIS_K = 0.04              # = 1/25: the score is ranked as 25x in integers
-ANGLE_BINS = 360             # steering table resolution, degrees
-PATTERN_SEED = 31
-PATTERN_SIGMA = PATCH_SIZE / 5
+HARRIS_K = 0.04
+# The descriptors' level blur: GaussianBlur(level, (7, 7), 2, 2,
+# BORDER_REFLECT_101), whose taps are getGaussianKernel(7, 2, CV_32F).
+BLUR_TAPS = tuple(float(np.float32(t)) for t in (
+    0.07015932, 0.13107488, 0.19071282, 0.21610594, 0.19071282, 0.13107488,
+    0.07015932))
+BLUR_RADIUS = 3
 
 # FAST's Bresenham circle of radius 3, as (dx, dy), in OpenCV's order.
 FAST_CIRCLE = ((0, 3), (1, 3), (2, 2), (3, 1), (3, 0), (3, -1), (2, -2),
                (1, -3), (0, -3), (-1, -3), (-2, -2), (-3, -1), (-3, 0),
                (-3, 1), (-2, 2), (-1, 3))
 
-# The 256 test pairs (x0, y0, x1, y1), drawn by draw_pattern(PATTERN_SEED).
-BRIEF_PATTERN = np.array([
-    -2, 2, 4, -6, 7, -6, 11, 7, -4, 4, 3, -11, 4, -4, -2, -4,
-    -3, 0, 1, -10, -2, -8, -8, -2, 5, 4, -4, -4, -5, 1, 6, 0,
-    4, 2, 9, -12, -13, -1, 4, -3, 3, -7, -8, -4, 5, 4, -4, 1,
-    -4, 0, -7, 0, -5, 0, -4, -5, 1, -2, 0, -3, 4, -5, 5, 8,
-    -2, 11, 13, 3, -8, -10, -1, 11, 4, 5, -2, -5, 2, -7, -1, 3,
-    0, 3, -3, 4, 3, -10, -6, -4, 4, 2, 2, 1, 4, 6, -3, -10,
-    4, -1, 0, -1, -7, -9, 6, 7, 6, 1, 2, -3, 0, -2, -3, 1,
-    11, -12, 4, 4, -8, 2, 1, -3, -3, -9, 11, 15, 10, -2, 2, 2,
-    -5, -2, 3, -3, -11, -8, 2, -2, -2, 8, 1, -4, 0, 13, -7, 11,
-    9, -1, -2, 9, 2, -3, 11, 1, 2, 0, -2, 1, -2, 3, 7, 7,
-    7, 9, 5, -4, 6, -10, -4, 2, -10, 9, -6, -9, -5, -5, 0, -1,
-    6, -1, 1, -6, 3, -5, -12, 8, -7, -7, -5, 4, -9, -2, 4, 12,
-    -2, 0, -5, 12, -1, 0, 1, -6, 0, -8, 9, -1, -1, 7, -8, 9,
-    9, -5, 4, -1, 5, 0, -6, 4, -1, 1, 6, 8, 4, -9, 4, -2,
-    7, -1, 9, 3, 0, 2, -11, 4, 1, -7, 3, 2, 2, -1, 5, 5,
-    1, 0, -3, -4, 4, -3, -9, 2, 7, -2, 5, 3, -6, 2, -1, 4,
-    -15, 5, 5, -6, 7, -1, 1, 5, 8, 1, 4, 3, -4, 10, 5, 1,
-    7, 3, -3, 6, 0, 4, 6, 6, 12, 1, -1, -4, -4, 4, 3, -5,
-    -4, -3, 10, -6, 2, -10, -1, 9, -8, 7, -11, 1, -7, 0, -1, 5,
-    2, 1, -3, 3, -5, -4, -4, 4, 14, 0, 12, -6, -3, 3, 4, 5,
-    10, -1, 7, 2, -15, -6, -3, 1, 4, -1, 8, -6, 0, 6, -7, 8,
-    6, -1, 0, 0, 0, 8, 3, -8, -9, 4, -15, -9, -4, 0, 9, 1,
-    15, 2, 6, 7, 0, 6, 4, 2, -4, -2, 5, 0, 3, 3, 2, 0,
-    4, 5, 9, 3, -3, -4, 4, -9, -3, 7, -2, -4, 8, -15, 0, -3,
-    -3, 6, 9, 7, 4, 2, -1, 0, -10, -3, 4, -1, 5, -9, -3, -6,
-    7, -1, -2, -7, -3, -6, -3, 14, -7, -1, -5, 8, -6, -5, 2, 10,
-    2, -3, -15, -15, 0, 0, 7, 3, -1, 8, 11, -4, 6, 8, -5, 4,
-    0, 7, 7, -13, -1, 9, 3, -6, -3, -7, 2, -8, 8, 5, 11, 7,
-    6, 6, 4, -12, 4, -5, -15, 10, 0, -10, 2, 3, 1, 9, -7, 6,
-    -6, 3, 4, -3, 15, -11, -9, -3, -5, 7, -3, 8, -3, 5, 5, 1,
-    5, 2, 13, 15, -2, 3, 7, 4, 12, 15, -12, -3, 9, 4, -4, -1,
-    1, 11, -6, 2, 9, 7, -1, -1, -11, -10, -5, 5, 5, 8, 6, 5,
-    1, -5, 8, -2, -11, 3, 1, 15, -1, 2, -7, 4, 2, -5, 2, -8,
-    4, -3, 2, -6, -5, -1, 5, 1, -15, 4, -1, 4, 7, 5, -5, -2,
-    3, 6, -5, -4, -6, 3, -4, 14, 5, 7, 4, -4, -15, 9, 2, -12,
-    15, 5, 10, -1, -11, -5, 5, -13, -3, 7, 7, 1, -15, -2, 8, 5,
-    -2, 2, 4, -2, -5, -4, -5, 0, 0, 4, 4, -1, -13, 4, -6, 11,
-    -2, 14, 4, 11, 1, 3, -3, -3, -3, 5, -7, 6, -2, 4, -6, 0,
-    -11, -4, -1, -6, -1, 1, 1, -13, -2, -1, -5, -6, 12, 5, 6, 7,
-    -6, -2, -11, 1, -12, -4, 5, 3, -6, -6, 8, 3, -3, 1, 1, -7,
-    -3, -13, 1, 1, 6, 6, -3, 10, -5, 6, -3, -4, -8, 0, 14, 1,
-    3, -2, 3, 4, 3, 9, 0, 3, 10, 4, -5, 8, 4, -5, -5, -2,
-    5, 2, 6, 15, 11, 1, -4, 9, -4, -5, -1, 2, -1, 2, -15, -2,
-    0, 4, 2, -1, 15, 6, 4, 2, 3, -5, -6, 2, -10, 4, -2, 5,
-    1, -5, -4, -2, 8, 9, -1, 1, -5, 9, 2, -4, -8, 3, 12, 1,
-    -5, -5, -3, -14, 6, -3, -11, -15, 2, 1, 9, 6, -3, -11, 1, -4,
-    1, -10, -2, -1, -8, -11, -14, 0, 7, 0, -15, 0, -10, 1, 11, 2,
-    -15, 6, 2, 12, 3, 4, -11, 9, -8, -13, 3, 5, 9, 7, 2, 2,
-    5, 2, 3, -13, -1, -2, 3, -5, 6, 5, -7, 0, 3, -7, -15, -2,
-    2, 0, 7, 2, 10, -4, 10, -2, 3, -12, -5, 7, 0, 0, -7, 5,
-    -6, 9, 4, -3, -5, -3, 2, 2, -10, 2, -7, 11, -12, 6, -7, 2,
-    7, 3, -7, -10, 9, -5, 5, 7, -10, 12, -1, -1, -6, 1, 3, 7,
-    6, 6, -1, -1, 1, 1, 8, 6, -1, -6, -12, -1, 0, -12, -2, 2,
-    1, -9, -4, -9, 5, 2, 15, -4, 9, 0, 1, 7, -12, -7, 9, 6,
-    12, 4, -3, 5, -3, 0, -1, -5, 13, 4, 1, 2, -4, -2, 1, 2,
-    -13, 8, -13, -6, -9, 1, -11, 6, 4, 6, 5, -2, 1, -6, -3, 3,
-    -8, -2, -3, 6, 3, -3, 5, 12, 7, 1, 1, -6, -3, 2, 2, -9,
-    -8, -8, -7, -4, -1, -7, -4, -12, -2, 1, -4, -10, 15, -5, 2, -14,
-    -5, 1, -1, 1, 0, -5, -6, -2, -4, -4, 2, 1, -3, 6, -1, -2,
-    5, 1, -10, 2, -10, -2, 1, 4, -6, -3, 4, 12, 12, 5, 10, -4,
-    -2, 5, 5, -10, 7, -6, -1, -7, -2, 6, -8, -4, 0, 3, 10, 1,
-    6, -10, -4, -15, 7, -4, 4, -7, -7, -7, -5, -2, -11, 0, 3, -12,
-    -10, -7, -6, 10, 4, -8, 15, 5, -8, -11, 2, -11, 1, 5, -6, -5,
-    -6, 8, 4, 3, 5, 0, -4, 2, 5, -1, -2, -6, 8, 5, 1, 1,
+# The 256 test pairs (x0, y0, x1, y1) of ORB's steered BRIEF: OpenCV's
+# learned table `bit_pattern_31_` (modules/features2d/src/orb.cpp), copied
+# as it stands. That file carries this notice:
+#
+#   Software License Agreement (BSD License)
+#
+#   Copyright (c) 2009, Willow Garage, Inc.
+#   All rights reserved.
+#
+#   Redistribution and use in source and binary forms, with or without
+#   modification, are permitted provided that the following conditions
+#   are met:
+#
+#    * Redistributions of source code must retain the above copyright
+#      notice, this list of conditions and the following disclaimer.
+#    * Redistributions in binary form must reproduce the above
+#      copyright notice, this list of conditions and the following
+#      disclaimer in the documentation and/or other materials provided
+#      with the distribution.
+#    * Neither the name of the Willow Garage nor the names of its
+#      contributors may be used to endorse or promote products derived
+#      from this software without specific prior written permission.
+#
+#   THIS SOFTWARE IS PROVIDED BY THE COPYRIGHT HOLDERS AND CONTRIBUTORS
+#   "AS IS" AND ANY EXPRESS OR IMPLIED WARRANTIES, INCLUDING, BUT NOT
+#   LIMITED TO, THE IMPLIED WARRANTIES OF MERCHANTABILITY AND FITNESS
+#   FOR A PARTICULAR PURPOSE ARE DISCLAIMED. IN NO EVENT SHALL THE
+#   COPYRIGHT OWNER OR CONTRIBUTORS BE LIABLE FOR ANY DIRECT, INDIRECT,
+#   INCIDENTAL, SPECIAL, EXEMPLARY, OR CONSEQUENTIAL DAMAGES (INCLUDING,
+#   BUT NOT LIMITED TO, PROCUREMENT OF SUBSTITUTE GOODS OR SERVICES;
+#   LOSS OF USE, DATA, OR PROFITS; OR BUSINESS INTERRUPTION) HOWEVER
+#   CAUSED AND ON ANY THEORY OF LIABILITY, WHETHER IN CONTRACT, STRICT
+#   LIABILITY, OR TORT (INCLUDING NEGLIGENCE OR OTHERWISE) ARISING IN
+#   ANY WAY OUT OF THE USE OF THIS SOFTWARE, EVEN IF ADVISED OF THE
+#   POSSIBILITY OF SUCH DAMAGE.
+#
+# OpenCV as a whole is distributed under the Apache License, Version 2.0
+# (https://www.apache.org/licenses/LICENSE-2.0), the licence that the
+# opencv-python wheel ships for its OpenCV binary; the wheel's own
+# LICENSE.txt reads:
+#
+#   MIT License
+#
+#   Copyright (c) Olli-Pekka Heinisuo
+#
+#   Permission is hereby granted, free of charge, to any person obtaining
+#   a copy of this software and associated documentation files (the
+#   "Software"), to deal in the Software without restriction, including
+#   without limitation the rights to use, copy, modify, merge, publish,
+#   distribute, sublicense, and/or sell copies of the Software, and to
+#   permit persons to whom the Software is furnished to do so, subject to
+#   the following conditions:
+#
+#   The above copyright notice and this permission notice shall be
+#   included in all copies or substantial portions of the Software.
+#
+#   THE SOFTWARE IS PROVIDED "AS IS", WITHOUT WARRANTY OF ANY KIND,
+#   EXPRESS OR IMPLIED, INCLUDING BUT NOT LIMITED TO THE WARRANTIES OF
+#   MERCHANTABILITY, FITNESS FOR A PARTICULAR PURPOSE AND
+#   NONINFRINGEMENT. IN NO EVENT SHALL THE AUTHORS OR COPYRIGHT HOLDERS BE
+#   LIABLE FOR ANY CLAIM, DAMAGES OR OTHER LIABILITY, WHETHER IN AN ACTION
+#   OF CONTRACT, TORT OR OTHERWISE, ARISING FROM, OUT OF OR IN CONNECTION
+#   WITH THE SOFTWARE OR THE USE OR OTHER DEALINGS IN THE SOFTWARE.
+ORB_PATTERN = np.array([
+    8, -3, 9, 5, 4, 2, 7, -12, -11, 9, -8, 2, 7, -12, 12, -13,
+    2, -13, 2, 12, 1, -7, 1, 6, -2, -10, -2, -4, -13, -13, -11, -8,
+    -13, -3, -12, -9, 10, 4, 11, 9, -13, -8, -8, -9, -11, 7, -9, 12,
+    7, 7, 12, 6, -4, -5, -3, 0, -13, 2, -12, -3, -9, 0, -7, 5,
+    12, -6, 12, -1, -3, 6, -2, 12, -6, -13, -4, -8, 11, -13, 12, -8,
+    4, 7, 5, 1, 5, -3, 10, -3, 3, -7, 6, 12, -8, -7, -6, -2,
+    -2, 11, -1, -10, -13, 12, -8, 10, -7, 3, -5, -3, -4, 2, -3, 7,
+    -10, -12, -6, 11, 5, -12, 6, -7, 5, -6, 7, -1, 1, 0, 4, -5,
+    9, 11, 11, -13, 4, 7, 4, 12, 2, -1, 4, 4, -4, -12, -2, 7,
+    -8, -5, -7, -10, 4, 11, 9, 12, 0, -8, 1, -13, -13, -2, -8, 2,
+    -3, -2, -2, 3, -6, 9, -4, -9, 8, 12, 10, 7, 0, 9, 1, 3,
+    7, -5, 11, -10, -13, -6, -11, 0, 10, 7, 12, 1, -6, -3, -6, 12,
+    10, -9, 12, -4, -13, 8, -8, -12, -13, 0, -8, -4, 3, 3, 7, 8,
+    5, 7, 10, -7, -1, 7, 1, -12, 3, -10, 5, 6, 2, -4, 3, -10,
+    -13, 0, -13, 5, -13, -7, -12, 12, -13, 3, -11, 8, -7, 12, -4, 7,
+    6, -10, 12, 8, -9, -1, -7, -6, -2, -5, 0, 12, -12, 5, -7, 5,
+    3, -10, 8, -13, -7, -7, -4, 5, -3, -2, -1, -7, 2, 9, 5, -11,
+    -11, -13, -5, -13, -1, 6, 0, -1, 5, -3, 5, 2, -4, -13, -4, 12,
+    -9, -6, -9, 6, -12, -10, -8, -4, 10, 2, 12, -3, 7, 12, 12, 12,
+    -7, -13, -6, 5, -4, 9, -3, 4, 7, -1, 12, 2, -7, 6, -5, 1,
+    -13, 11, -12, 5, -3, 7, -2, -6, 7, -8, 12, -7, -13, -7, -11, -12,
+    1, -3, 12, 12, 2, -6, 3, 0, -4, 3, -2, -13, -1, -13, 1, 9,
+    7, 1, 8, -6, 1, -1, 3, 12, 9, 1, 12, 6, -1, -9, -1, 3,
+    -13, -13, -10, 5, 7, 7, 10, 12, 12, -5, 12, 9, 6, 3, 7, 11,
+    5, -13, 6, 10, 2, -12, 2, 3, 3, 8, 4, -6, 2, 6, 12, -13,
+    9, -12, 10, 3, -8, 4, -7, 9, -11, 12, -4, -6, 1, 12, 2, -8,
+    6, -9, 7, -4, 2, 3, 3, -2, 6, 3, 11, 0, 3, -3, 8, -8,
+    7, 8, 9, 3, -11, -5, -6, -4, -10, 11, -5, 10, -5, -8, -3, 12,
+    -10, 5, -9, 0, 8, -1, 12, -6, 4, -6, 6, -11, -10, 12, -8, 7,
+    4, -2, 6, 7, -2, 0, -2, 12, -5, -8, -5, 2, 7, -6, 10, 12,
+    -9, -13, -8, -8, -5, -13, -5, -2, 8, -8, 9, -13, -9, -11, -9, 0,
+    1, -8, 1, -2, 7, -4, 9, 1, -2, 1, -1, -4, 11, -6, 12, -11,
+    -12, -9, -6, 4, 3, 7, 7, 12, 5, 5, 10, 8, 0, -4, 2, 8,
+    -9, 12, -5, -13, 0, 7, 2, 12, -1, 2, 1, 7, 5, 11, 7, -9,
+    3, 5, 6, -8, -13, -4, -8, 9, -5, 9, -3, -3, -4, -7, -3, -12,
+    6, 5, 8, 0, -7, 6, -6, 12, -13, 6, -5, -2, 1, -10, 3, 10,
+    4, 1, 8, -4, -2, -2, 2, -13, 2, -12, 12, 12, -2, -13, 0, -6,
+    4, 1, 9, 3, -6, -10, -3, -5, -3, -13, -1, 1, 7, 5, 12, -11,
+    4, -2, 5, -7, -13, 9, -9, -5, 7, 1, 8, 6, 7, -8, 7, 6,
+    -7, -4, -7, 1, -8, 11, -7, -8, -13, 6, -12, -8, 2, 4, 3, 9,
+    10, -5, 12, 3, -6, -5, -6, 7, 8, -3, 9, -8, 2, -12, 2, 8,
+    -11, -2, -10, 3, -12, -13, -7, -9, -11, 0, -10, -5, 5, -3, 11, 8,
+    -2, -13, -1, 12, -1, -8, 0, 9, -13, -11, -12, -5, -10, -2, -10, 11,
+    -3, 9, -2, -13, 2, -3, 3, 2, -9, -13, -4, 0, -4, 6, -3, -10,
+    -4, 12, -2, -7, -6, -11, -4, 9, 6, -3, 6, 11, -13, 11, -5, 5,
+    11, 11, 12, 6, 7, -5, 12, -2, -1, 12, 0, 7, -4, -8, -3, -2,
+    -7, 1, -6, 7, -13, -12, -8, -13, -7, -2, -6, -8, -8, 5, -6, -9,
+    -5, -1, -4, 5, -13, 7, -8, 10, 1, 5, 5, -13, 1, 0, 10, -13,
+    9, 12, 10, -1, 5, -8, 10, -9, -1, 11, 1, -13, -9, -3, -6, 2,
+    -1, -10, 1, 12, -13, 1, -8, -10, 8, -11, 10, -6, 2, -13, 3, -6,
+    7, -13, 12, -9, -10, -10, -5, -7, -10, -8, -8, -13, 4, -6, 8, 5,
+    3, 12, 8, -13, -4, 2, -3, -3, 5, -13, 10, -12, 4, -13, 5, -1,
+    -9, 9, -4, 3, 0, 3, 3, -9, -12, 1, -6, 1, 3, 2, 4, -8,
+    -10, -10, -10, 9, 8, -13, 12, 12, -8, -12, -6, -5, 2, 2, 3, 7,
+    10, 6, 11, -8, 6, 8, 8, -12, -7, 10, -6, 5, -3, -9, -3, 9,
+    -1, -13, -1, 5, -3, -7, -3, 4, -8, -2, -8, 3, 4, 2, 12, 12,
+    2, -5, 3, 11, 6, -9, 11, -13, 3, -1, 7, 12, 11, -1, 12, 4,
+    -3, 0, -3, 6, 4, -11, 4, 12, 2, -4, 2, 1, -10, -6, -8, 1,
+    -13, 7, -11, 1, -13, 12, -11, -13, 6, 0, 11, -13, 0, -1, 1, 4,
+    -13, 3, -9, -2, -9, 8, -6, -3, -13, -6, -8, -2, 5, -9, 8, 10,
+    2, 7, 3, -9, -1, -6, -1, -1, 9, 5, 11, -2, 11, -3, 12, -8,
+    3, 0, 3, 5, -1, 4, 0, 10, 3, -6, 4, 5, -13, 0, -10, 5,
+    5, 8, 12, 11, 8, 9, 9, -6, 7, -4, 8, -12, -10, 4, -10, 9,
+    7, 3, 12, 4, 9, -7, 10, -2, 7, 0, 12, -2, -1, -6, 0, -11,
 ], np.int64).reshape(256, 4)
-
-
-def draw_pattern(seed: int = PATTERN_SEED) -> np.ndarray:
-    """The steered-BRIEF test pairs [256, 4] (x0, y0, x1, y1): both points
-    isotropic Gaussian with sigma = 31/5 (BRIEF's G II), rounded, clipped to
-    the 31x31 patch; a pair whose points coincide is drawn again."""
-    rng = np.random.default_rng(seed)
-    half = PATCH_SIZE // 2
-    pairs = []
-    while len(pairs) < 256:
-        p = np.clip(np.rint(rng.normal(0.0, PATTERN_SIGMA, (2, 2))), -half,
-                    half).astype(np.int64)
-        if (p[0] != p[1]).any():
-            pairs.append(p.ravel())
-    return np.array(pairs)
 
 
 class OrbFeatures(NamedTuple):
@@ -1156,7 +1211,7 @@ def level_budget(nfeatures: int) -> list[int]:
     """Features per level, n (1 - 1/s) / (1 - (1/s)^8) (1/s)^l, the last
     level taking the remainder (float32, as OpenCV computes it)."""
     f32 = np.float32
-    factor = f32(1.0 / ORB_SCALE)
+    factor = f32(1.0 / float(ORB_SCALE))
     per = f32(nfeatures) * (f32(1) - factor) / (
         f32(1) - f32(float(factor) ** ORB_LEVELS))
     out = []
@@ -1168,8 +1223,10 @@ def level_budget(nfeatures: int) -> list[int]:
 
 
 def level_scales() -> np.ndarray:
-    """Per-level scale 1.2^l as float32."""
-    return np.array([ORB_SCALE ** l for l in range(ORB_LEVELS)], np.float32)
+    """Per-level scale s^l as float32: the power taken in double of the
+    float scale factor, as OpenCV's getScale."""
+    return np.array([float(ORB_SCALE) ** l for l in range(ORB_LEVELS)],
+                    np.float32)
 
 
 def _patch_mask() -> np.ndarray:
@@ -1191,21 +1248,11 @@ def _patch_mask() -> np.ndarray:
     return np.abs(du) <= np.array(umax[:half + 1])[np.abs(dv)]
 
 
-def _steered_pattern() -> np.ndarray:
-    """BRIEF_PATTERN's points rotated to each of ANGLE_BINS orientations
-    and rounded -> [ANGLE_BINS, 512, 2] (dx, dy)."""
-    pts = BRIEF_PATTERN.reshape(512, 2).astype(np.float64)
-    th = np.deg2rad(np.arange(ANGLE_BINS) * 360.0 / ANGLE_BINS)
-    a, b = np.cos(th)[:, None], np.sin(th)[:, None]
-    x = np.rint(pts[:, 0] * a - pts[:, 1] * b)
-    y = np.rint(pts[:, 0] * b + pts[:, 1] * a)
-    return np.stack([x, y], -1).astype(np.int64)
-
-
 @functools.lru_cache(maxsize=8)
 def _tables(device: torch.device):
     """The circular patch's (du, dv), the Harris block's (dy, dx) and the
-    steered test points on `device`, uploaded once per device."""
+    test points [512, 2] (x, y) as float32 on `device`, uploaded once per
+    device."""
     half = PATCH_SIZE // 2
     dv, du = np.nonzero(_patch_mask())
     r = HARRIS_BLOCK // 2
@@ -1213,7 +1260,7 @@ def _tables(device: torch.device):
     return tuple(torch.from_numpy(x).to(device) for x in (
         (du - half).astype(np.int64), (dv - half).astype(np.int64),
         hy.ravel().astype(np.int64), hx.ravel().astype(np.int64),
-        _steered_pattern()))
+        ORB_PATTERN.reshape(512, 2).astype(np.float32)))
 
 
 @functools.lru_cache(maxsize=64)
@@ -1239,7 +1286,7 @@ def _resize(img: torch.Tensor, h: int, w: int) -> torch.Tensor:
 
 def pyramid(gray: torch.Tensor) -> list[torch.Tensor]:
     """The ORB pyramid of an int32 [H, W] image: level l is
-    round(size / 1.2^l), each resized from the one above."""
+    cvRound(size / s^l) in float32, each resized from the one above."""
     H, W = gray.shape
     levels = [gray]
     for s in level_scales()[1:]:
@@ -1304,7 +1351,6 @@ def harris_sums(img, ys, xs):
     """OpenCV's Harris sums over the 7x7 block around each keypoint: a =
     sum Ix^2, b = sum Iy^2, c = sum Ix Iy with 3x3 Sobel gradients ->
     three [N] int64 tensors."""
-    H, W = img.shape
     i = img
     ix = torch.zeros_like(i)
     iy = torch.zeros_like(i)
@@ -1318,42 +1364,178 @@ def harris_sums(img, ys, xs):
     return (gx * gx).sum(1), (gy * gy).sum(1), (gx * gy).sum(1)
 
 
-def harris_response(a, b, c) -> np.ndarray:
-    """OpenCV's float32 Harris response from the integer sums."""
+def harris_response(a, b, c) -> torch.Tensor:
+    """OpenCV's float32 Harris response from the integer sums, each
+    product and sum rounded in float32 in HarrisResponses' order."""
     f32 = np.float32
-    a, b, c = (np.asarray(x).astype(np.float32) for x in (a, b, c))
     scale = f32(1.0) / f32((1 << 2) * HARRIS_BLOCK * 255.0)
-    s4 = scale * scale * scale * scale
-    return ((a * b - c * c - f32(HARRIS_K) * (a + b) * (a + b)) * s4).astype(
-        np.float32)
+    s4 = float(scale * scale * scale * scale)
+    a, b, c = (x.to(torch.float32) for x in (a, b, c))
+    ab = a + b
+    k_ab = float(f32(HARRIS_K)) * ab
+    return (a * b - c * c - k_ab * ab) * s4
 
 
-def _smooth(img: torch.Tensor) -> torch.Tensor:
-    """5x5 binomial smoothing of an int32 image, rounded (the 2-pixel
-    border is left unsmoothed: no keypoint's tests reach it)."""
-    out = img.clone()
-    h = (img[:, :-4] + 4 * img[:, 1:-3] + 6 * img[:, 2:-2] + 4 * img[:, 3:-1]
-         + img[:, 4:])
-    v = (h[:-4] + 4 * h[1:-3] + 6 * h[2:-2] + 4 * h[3:-1] + h[4:])
-    out[2:-2, 2:-2] = (v + 128) >> 8
+# OpenCV's fastAtan2: a degree-7 odd polynomial in float32 of the smaller
+# over the larger coordinate, its coefficients rounded to float32 and each
+# scaled by (float)(180 / pi) in float32; +DBL_EPSILON (as float) keeps
+# 0 / 0 finite.
+_ATAN_COEFFS = tuple(
+    float(np.float32(c) * np.float32(180.0 / np.pi)) for c in (
+        0.9997878412794807, -0.3258083974640975, 0.1555786518463281,
+        -0.04432655554792128))
+_ATAN_EPS = float(np.float32(np.finfo(np.float64).eps))
+
+
+def fast_atan2(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """cv::fastAtan2(y, x) on float32 tensors, bit for bit: degrees in
+    [0, 360), each operation one float32 op (no fused multiply-add, as
+    OpenCV's baseline build evaluates it)."""
+    p1, p3, p5, p7 = _ATAN_COEFFS
+    ax, ay = x.abs(), y.abs()
+    wide = ax >= ay
+    c = torch.where(wide, ay, ax) / (torch.where(wide, ax, ay) + _ATAN_EPS)
+    c2 = c * c
+    a = (((c2 * p7 + p5) * c2 + p3) * c2 + p1) * c
+    a = torch.where(wide, a, 90.0 - a)
+    a = torch.where(x < 0, 180.0 - a, a)
+    return torch.where(y < 0, 360.0 - a, a)
+
+
+# sin and cos in double for |r| <= pi/4 (fdlibm's __kernel_sin and
+# __kernel_cos, under 1 ulp), after a Cody-Waite reduction by pi/2: the
+# first 33 bits of pi/2 and the next 53.
+_SIN_COEFFS = (-1.66666666666666324348e-01, 8.33333333332248946124e-03,
+               -1.98412698298579493134e-04, 2.75573137070700676789e-06,
+               -2.50507602534068634195e-08, 1.58969099521155010221e-10)
+_COS_COEFFS = (4.16666666666666019037e-02, -1.38888888888741095749e-03,
+               2.48015872894767294178e-05, -2.75573143513906633035e-07,
+               2.08757232129817482790e-09, -1.13596475577881948265e-11)
+_PIO2_HI = 1.57079632673412561417e+00
+_PIO2_LO = 6.07710050650619224932e-11
+_DEG_TO_RAD = float(np.float32(np.pi / 180.0))
+
+
+def _horner(z, coeffs):
+    out = torch.full_like(z, coeffs[-1])
+    for c in coeffs[-2::-1]:
+        out = out * z + c
     return out
+
+
+def orb_steering(angle: torch.Tensor):
+    """(cos, sin) as computeOrbDescriptors takes them from a keypoint's
+    float32 angle in degrees: the angle times (float)(CV_PI / 180) in
+    float32, its cosine and sine in double rounded to float32. The double
+    functions are explicit float64 ops (reduction and polynomials), so
+    that every device gives the same bits."""
+    r = (angle * _DEG_TO_RAD).to(torch.float64)
+    q = torch.round(r * (2.0 / np.pi))
+    r = (r - q * _PIO2_HI) - q * _PIO2_LO
+    z = r * r
+    sin = r + z * r * (_SIN_COEFFS[0] + z * _horner(z, _SIN_COEFFS[1:]))
+    hz = 0.5 * z
+    w = 1.0 - hz
+    cos = w + (((1.0 - w) - hz) + z * z * _horner(z, _COS_COEFFS))
+    quad = q.to(torch.int64) % 4
+    c = torch.where(quad % 2 == 0, cos, sin)
+    s = torch.where(quad % 2 == 0, sin, cos)
+    c = torch.where((quad == 1) | (quad == 2), -c, c)
+    s = torch.where(quad >= 2, -s, s)
+    return c.to(torch.float32), s.to(torch.float32)
+
+
+def _fma32(a: torch.Tensor, b: float, c: torch.Tensor) -> torch.Tensor:
+    """a * b + c of float32 tensors rounded once (a fused multiply-add),
+    in float64: a * b is exact there, the sum is rounded to odd (its error
+    recovered as in _two_sum, the last bit set toward it where the sum was
+    inexact and even), and the cast to float32 then rounds as once."""
+    p = a.to(torch.float64).mul_(b)
+    c = c.to(torch.float64)
+    s = p + c
+    z = s - p
+    err = p.sub_(s - z).add_(c.sub_(z))
+    bits = s.view(torch.int64)
+    toward = err.sign_().mul_(s.sign()).to(torch.int64)
+    bits.add_(toward.mul_((bits & 1).neg_().add_(1)))
+    return s.to(torch.float32)
+
+
+def _reflect_101(n: int, r: int, device) -> torch.Tensor:
+    """Indices of 0..n-1 padded by r on each side with BORDER_REFLECT_101
+    (gfedcb|abcdefgh|gfedcba)."""
+    i = torch.arange(-r, n + r, device=device).abs()
+    return torch.where(i > n - 1, 2 * (n - 1) - i, i)
+
+
+def orb_level_blur(img: torch.Tensor) -> torch.Tensor:
+    """The level blur of ORB's descriptors on an int32 [H, W] image ->
+    int32 [H, W]: OpenCV's separable float filter on 8-bit input, as its
+    vector build computes it. The row pass sums the 7 taps left to right,
+    the first product rounded and each further one fused into the sum; the
+    column pass starts from the centre row's product and fuses in each
+    symmetric pair (the two rows added in float32 first), nearest first;
+    then cvRound and saturation to 8 bits. The border is
+    BORDER_REFLECT_101: ORB blurs each level in place inside its pyramid
+    buffer, whose border copyMakeBorder filled that way."""
+    H, W = img.shape
+    r = BLUR_RADIUS
+    k = BLUR_TAPS
+    p = img[_reflect_101(H, r, img.device)][:, _reflect_101(W, r,
+                                                            img.device)]
+    p = p.to(torch.float64)                                  # [H+6, W+6]
+    # Row pass: the exact sum of a float32 partial (>= 2^-4 or 0) and a
+    # tap (lsb >= 2^-27) times an 8-bit pixel spans at most 35 bits, so
+    # float64 holds it and the cast to float32 is the fused rounding.
+    s = (p[:, :W] * k[0]).to(torch.float32)
+    for j in range(1, 2 * r + 1):
+        s = (p[:, j:j + W] * k[j]).add_(s.to(torch.float64)).to(
+            torch.float32)
+    t = s[r:r + H] * k[r]
+    for j in range(1, r + 1):
+        pair = s[r + j:r + j + H] + s[r - j:r - j + H]
+        t = _fma32(pair, k[r + j], t)
+    return torch.round(t).clamp(0, 255).to(torch.int32)
+
+
+def orb_descriptors(blurred: torch.Tensor, ys, xs, angle) -> torch.Tensor:
+    """The 256 steered tests of each keypoint on its blurred level, as
+    computeOrbDescriptors: each test point rotated by the keypoint's
+    (cos, sin) with every product and sum in float32, rounded half to
+    even (cvRound), and the pixel there compared -> [N, 32] uint8."""
+    W = blurred.shape[1]
+    pts = _tables(blurred.device)[4]
+    a, b = orb_steering(angle)
+    a, b = a[:, None], b[:, None]
+    px, py = pts[None, :, 0], pts[None, :, 1]
+    ix = torch.round(px * a - py * b).to(torch.int64)        # [N, 512]
+    iy = torch.round(px * b + py * a).to(torch.int64)
+    flat = (ys[:, None] + iy) * W + xs[:, None] + ix
+    vals = blurred.reshape(-1)[flat]
+    bits = (vals[:, 0::2] < vals[:, 1::2]).to(torch.int32)
+    weights = 1 << torch.arange(8, device=blurred.device, dtype=torch.int32)
+    return (bits.reshape(-1, 32, 8) * weights).sum(-1).to(torch.uint8)
 
 
 def orb_detect_and_compute(gray, nfeatures: int, device) -> OrbFeatures:
     """ORB keypoints and descriptors of an 8-bit gray image [H, W] (numpy
-    or tensor), computed with torch on `device`, following
-    cv2.ORB_create(nfeatures)'s defaults: 8 levels at scale 1.2 with the
-    per-level budget of level_budget; FAST-9 at threshold 20 with non-max
-    suppression on each level, keypoints at least 31 pixels from its edge;
-    the best 2n per level by FAST score, then the best n by the Harris
-    score (k 0.04, 7x7 block); orientation by the intensity centroid over
-    the circular patch of radius 15; 256 steered tests on the 5x5-smoothed
-    level. Points come back in level-0 pixels, level by level, each level
-    in raster order."""
+    or tensor), computed with torch on `device`: what
+    cv2.ORB_create(nfeatures).detectAndCompute(gray, None) returns, the
+    same keypoints (level and float32 point), float32 responses and
+    angles, and descriptors bit for bit. 8 levels at the float scale 1.2
+    with the per-level budget of level_budget; FAST-9 at threshold 20 with
+    non-max suppression on each level, keypoints at least 31 pixels from
+    its edge; the best 2n per level by FAST score, then the best n by the
+    float32 Harris response (k 0.04, 7x7 block), ties at the n-th kept;
+    orientation by fastAtan2 of the intensity centroid over the circular
+    patch of radius 15; OpenCV's 256 learned tests, steered, on the level
+    blurred by orb_level_blur. Points come back in level-0 pixels, level by
+    level, each level in raster order; OpenCV's own order comes from
+    std::nth_element inside retainBest and carries no meaning."""
     device = torch.device(device)
     img = torch.as_tensor(np.asarray(gray, np.uint8)).to(device).to(
         torch.int32)
-    du, dv, _, _, steered = _tables(device)
+    du, dv, _, _, _ = _tables(device)
     budget = level_budget(nfeatures)
     scales = level_scales()
     out = {k: [] for k in OrbFeatures._fields}
@@ -1370,35 +1552,23 @@ def orb_detect_and_compute(gray, nfeatures: int, device) -> OrbFeatures:
             continue
         keep = _retain_best(inner[ys, xs], 2 * n)
         ys, xs = ys[keep], xs[keep]
-        a, b, c = harris_sums(im, ys, xs)
-        rank = 25 * (a * b - c * c) - (a + b) * (a + b)
-        keep = _retain_best(rank, n)
-        ys, xs, a, b, c = ys[keep], xs[keep], a[keep], b[keep], c[keep]
+        resp = harris_response(*harris_sums(im, ys, xs))
+        keep = _retain_best(resp, n)
+        ys, xs, resp = ys[keep], xs[keep], resp[keep]
         # Orientation: the intensity centroid over the circular patch.
         patch = _window_sums(im, ys, xs, dv, du)
         m10 = (patch * du).sum(1)
         m01 = (patch * dv).sum(1)
-        angle = torch.rad2deg(torch.atan2(m01.to(torch.float64),
-                                          m10.to(torch.float64)))
-        angle = torch.remainder(angle, 360.0)
-        # Steered tests on the smoothed level.
-        k = torch.remainder(torch.round(angle * (ANGLE_BINS / 360.0)),
-                            ANGLE_BINS).to(torch.int64)
-        offs = steered[k]                                    # [N, 512, 2]
-        flat = ((ys[:, None] + offs[..., 1]) * W + xs[:, None]
-                + offs[..., 0])
-        vals = _smooth(im).reshape(-1)[flat]
-        bits = (vals[:, 0::2] < vals[:, 1::2]).to(torch.int32)
-        weights = (1 << torch.arange(8, device=device, dtype=torch.int32))
-        desc = (bits.reshape(-1, 32, 8) * weights).sum(-1).to(torch.uint8)
-        host = [t.cpu().numpy() for t in (xs, ys, a, b, c, angle, desc)]
-        xs_h, ys_h, a_h, b_h, c_h, ang_h, desc_h = host
+        angle = fast_atan2(m01.to(torch.float32), m10.to(torch.float32))
+        desc = orb_descriptors(orb_level_blur(im), ys, xs, angle)
+        xs_h, ys_h, resp_h, ang_h, desc_h = (
+            t.cpu().numpy() for t in (xs, ys, resp, angle, desc))
         s = scales[lvl]
         out["px"].append(np.stack([xs_h.astype(np.float32) * s,
                                    ys_h.astype(np.float32) * s], 1))
         out["desc"].append(desc_h)
-        out["resp"].append(harris_response(a_h, b_h, c_h))
-        out["angle"].append(ang_h.astype(np.float32))
+        out["resp"].append(resp_h)
+        out["angle"].append(ang_h)
         out["level"].append(np.full(len(xs_h), lvl, np.int32))
     empty = dict(px=np.zeros((0, 2), np.float32),
                  desc=np.zeros((0, 32), np.uint8),

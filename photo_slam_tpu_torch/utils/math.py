@@ -57,6 +57,34 @@ def quat_to_rotmat(q: torch.Tensor) -> torch.Tensor:
     )
 
 
+def quat_to_rotmat_nonorm(q: torch.Tensor) -> torch.Tensor:
+    """Same as :func:`quat_to_rotmat` but WITHOUT normalization.
+
+    The rasterizer's covariance builder assumes unit quaternions and skips
+    normalization (reference: cuda_rasterizer/forward.cu:126-138); keeping
+    the same structure keeps gradients identical when the caller
+    normalizes.
+    """
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    r00 = 1.0 - 2.0 * (y * y + z * z)
+    r01 = 2.0 * (x * y - w * z)
+    r02 = 2.0 * (x * z + w * y)
+    r10 = 2.0 * (x * y + w * z)
+    r11 = 1.0 - 2.0 * (x * x + z * z)
+    r12 = 2.0 * (y * z - w * x)
+    r20 = 2.0 * (x * z - w * y)
+    r21 = 2.0 * (y * z + w * x)
+    r22 = 1.0 - 2.0 * (x * x + y * y)
+    return torch.stack(
+        [
+            torch.stack([r00, r01, r02], dim=-1),
+            torch.stack([r10, r11, r12], dim=-1),
+            torch.stack([r20, r21, r22], dim=-1),
+        ],
+        dim=-2,
+    )
+
+
 def rotmat_to_quat(R: torch.Tensor) -> torch.Tensor:
     """Batched rotation matrix [..., 3, 3] -> unit quaternion (w, x, y, z).
 

@@ -761,15 +761,20 @@ def test_keypoint_agreement():
     a = vision.orb_detect_and_compute(gray, 300, torch.device("cpu"))
     assert len(a.px) > 50
     assert cs.keypoint_agreement(a, a) == (1.0, 1.0)
-    # One keypoint moved by 1e-2 px and one descriptor bit flipped.
+    assert cs.ORB_AGREEMENT == 1.0 and cs.ORB_PX_TOL == 0.0
+    # One keypoint moved by one float32 ulp, one descriptor bit flipped,
+    # one response and one angle off by an ulp.
     px = a.px.copy()
-    px[0, 0] += 1e-2
+    px[0, 0] = np.nextafter(px[0, 0], np.float32(np.inf))
     desc = a.desc.copy()
     desc[1, 0] ^= 1
-    b = a._replace(px=px, desc=desc)
+    resp, angle = a.resp.copy(), a.angle.copy()
+    resp[2] = np.nextafter(resp[2], np.float32(np.inf))
+    angle[3] = np.nextafter(angle[3], np.float32(0))
+    b = a._replace(px=px, desc=desc, resp=resp, angle=angle)
     share, same = cs.keypoint_agreement(a, b)
     assert share == pytest.approx(1 - 1 / len(a.px))
-    assert same == pytest.approx(1 - 1 / (len(a.px) - 1))
+    assert same == pytest.approx(1 - 3 / (len(a.px) - 1))
     # A level mismatch is no twin; a missing keypoint counts against.
     lvl = a.level.copy()
     lvl[2] = 7 - lvl[2]
@@ -780,6 +785,25 @@ def test_keypoint_agreement():
     assert cs.keypoint_agreement(a, d)[0] == pytest.approx(
         1 - 1 / len(a.px))
     assert cs.ms_stats([0.001, 0.002]).startswith("1.500 / ")
+
+
+def test_orb_digest():
+    """orb_digest does not depend on the rows' order and sees one bit of
+    any field."""
+    from photo_slam_tpu_torch.tracking import vision
+
+    rng = np.random.default_rng(1)
+    gray = (rng.random((120, 160)) * 255).astype(np.uint8)
+    a = vision.orb_detect_and_compute(gray, 300, torch.device("cpu"))
+    digest = cs.orb_digest(a)
+    assert len(digest) == 64
+    perm = rng.permutation(len(a.px))
+    assert cs.orb_digest(a._replace(**{k: v[perm] for k, v in
+                                       a._asdict().items()})) == digest
+    for name in vision.OrbFeatures._fields:
+        x = getattr(a, name).copy()
+        x.view(np.uint8).reshape(-1)[-1] ^= 1
+        assert cs.orb_digest(a._replace(**{name: x})) != digest, name
 
 
 # ---------------------------------------------------------------------------

@@ -15,8 +15,11 @@ compared after the port's save_stream and the JAX load_stream.
 
 With the port's own vision.py, the scenarios of tests/test_frontend.py,
 tests/test_loop_closing.py and tests/test_multimap.py hold at their
-thresholds. The sequences are rendered once per module at 320x240 by
-splat_render, a numpy front-to-back blend of the JAX tests' splat worlds."""
+thresholds. The port's own ORB equals OpenCV's: with it and OpenCV's
+other functions, the port runs as the JAX frontend does on OpenCV's
+features put in the port's order (test_parity_with_jax_own_orb). The
+sequences are rendered once per module at 320x240 by splat_render, a numpy
+front-to-back blend of the JAX tests' splat worlds."""
 import numpy as np
 import pytest
 
@@ -255,27 +258,58 @@ def cv2_pnp(obj, img, K, rvec0=None, tvec0=None, use_guess=False,
                               flags=cv2.SOLVEPNP_ITERATIVE)
 
 
-@pytest.fixture
-def cv2_vision(monkeypatch):
-    for name, fn in {
-            "rgb_to_gray": lambda u8: cv2.cvtColor(u8, cv2.COLOR_RGB2GRAY),
-            "orb_detect_and_compute": cv2_orb,
-            "rodrigues": lambda r: cv2.Rodrigues(
-                np.asarray(r, np.float64).reshape(3, 1))[0],
-            "rodrigues_inverse": lambda R: cv2.Rodrigues(
-                np.asarray(R, np.float64))[0],
-            "solve_pnp_ransac": cv2_pnp,
-            "find_essential_mat": lambda p0, p1, K, prob, threshold:
-                cv2.findEssentialMat(p0, p1, K, cv2.RANSAC, prob, threshold),
-            "recover_pose": lambda E, p0, p1, K, mask=None: cv2.recoverPose(
-                E, p0, p1, K, mask=mask),
-            "triangulate_points": cv2.triangulatePoints}.items():
+def swap_in_opencv(monkeypatch, orb=True):
+    """OpenCV's functions in vision.py and its SGBM in stereo.py, as the
+    JAX frontend calls them; with orb=False the port keeps its own ORB."""
+    fns = {
+        "rgb_to_gray": lambda u8: cv2.cvtColor(u8, cv2.COLOR_RGB2GRAY),
+        "orb_detect_and_compute": cv2_orb,
+        "rodrigues": lambda r: cv2.Rodrigues(
+            np.asarray(r, np.float64).reshape(3, 1))[0],
+        "rodrigues_inverse": lambda R: cv2.Rodrigues(
+            np.asarray(R, np.float64))[0],
+        "solve_pnp_ransac": cv2_pnp,
+        "find_essential_mat": lambda p0, p1, K, prob, threshold:
+            cv2.findEssentialMat(p0, p1, K, cv2.RANSAC, prob, threshold),
+        "recover_pose": lambda E, p0, p1, K, mask=None: cv2.recoverPose(
+            E, p0, p1, K, mask=mask),
+        "triangulate_points": cv2.triangulatePoints}
+    if not orb:
+        del fns["orb_detect_and_compute"]
+    for name, fn in fns.items():
         monkeypatch.setattr(vision, name, fn)
     monkeypatch.setattr(
         stereo, "disparity_u8", lambda left, right, device:
         cv2.StereoSGBM_create(minDisparity=0, numDisparities=128,
                               blockSize=5).compute(left, right).astype(
                                   np.float32) / 16.0)
+
+
+@pytest.fixture
+def cv2_vision(monkeypatch):
+    swap_in_opencv(monkeypatch)
+
+
+@pytest.fixture
+def cv2_vision_own_orb(monkeypatch):
+    swap_in_opencv(monkeypatch, orb=False)
+
+
+class PortOrderOrb:
+    """cv2's ORB with its keypoints and their descriptors sorted into the
+    order of the port's orb_detect_and_compute: level by level, raster
+    order within a level. It reorders and changes nothing else."""
+
+    def __init__(self, orb):
+        self.orb = orb
+
+    def detectAndCompute(self, gray, mask):
+        kps, desc = self.orb.detectAndCompute(gray, mask)
+        if desc is None or len(kps) == 0:
+            return kps, desc
+        order = np.lexsort(([k.pt[0] for k in kps], [k.pt[1] for k in kps],
+                            [k.octave for k in kps]))
+        return tuple(kps[i] for i in order), desc[order]
 
 
 # ---------------------------------------------------------------------------
@@ -335,10 +369,12 @@ def run_loop_scenario(fe, frames, async_=False):
     return ops
 
 
-def both_frontends(frames, kw, drive, cam_kw=None, calib=None):
+def both_frontends(frames, kw, drive, cam_kw=None, calib=None,
+                   jax_orb=None):
     """Run the JAX and the port's SlamFrontend (OpenCV's RNG seeded alike)
     through `drive(fe, frames)` -> ([jax ops], [port ops], jax, port).
-    `cam_kw` sets camera fields, `calib` an ImuCalib's fields."""
+    `cam_kw` sets camera fields, `calib` an ImuCalib's fields; `jax_orb`
+    wraps the JAX frontend's cv2 ORB."""
     from photo_slam_tpu.tracking.imu import ImuCalib as JImuCalib
 
     out = []
@@ -351,6 +387,8 @@ def both_frontends(frames, kw, drive, cam_kw=None, calib=None):
             extra = dict(extra, imu_calib=imu_cls(**calib))
         cv2.setRNGSeed(7)
         fe = cls(cam, **kw, **extra)
+        if jax_orb is not None and cls is JFrontend:
+            fe.orb = jax_orb(fe.orb)
         out.append((drive(fe, frames), fe))
     return out[0][0], out[1][0], out[0][1], out[1][1]
 
@@ -406,6 +444,23 @@ def test_parity_with_jax(sensor, rgbd_sequence, mono_sequence, cv2_vision,
     _, frames, _ = rgbd_sequence if sensor == "rgbd" else mono_sequence
     kw = dict(sensor=sensor, kf_min_interval=1, kf_tracked_ratio=2.0)
     jops_, tops, jfe, tfe = both_frontends(frames, kw, drive_all)
+    assert len(tops) >= 4 and len(tfe.map.keyframes) >= 4
+    assert_same_run(jfe, tfe)
+    assert_same_stream(tmp_path, jops_, tops)
+
+
+@pytest.mark.parametrize("sensor", ["rgbd", "mono"])
+def test_parity_with_jax_own_orb(sensor, rgbd_sequence, mono_sequence,
+                                 cv2_vision_own_orb, tmp_path):
+    """The port with its own ORB (OpenCV's other functions) against the JAX
+    frontend on OpenCV's features in the port's order: the same run and
+    the same op stream."""
+    _, frames, _ = rgbd_sequence if sensor == "rgbd" else mono_sequence
+    kw = dict(sensor=sensor, kf_min_interval=1, kf_tracked_ratio=2.0)
+    jops_, tops, jfe, tfe = both_frontends(frames, kw, drive_all,
+                                           jax_orb=PortOrderOrb)
+    assert isinstance(jfe.orb, PortOrderOrb)
+    assert vision.orb_detect_and_compute.__module__ == vision.__name__
     assert len(tops) >= 4 and len(tfe.map.keyframes) >= 4
     assert_same_run(jfe, tfe)
     assert_same_stream(tmp_path, jops_, tops)

@@ -14,16 +14,26 @@ translation-direction errors at most 1.5x OpenCV's. _svd3 against
 cv2.SVDecomp within 1e-12 (bit-equal at a zero singular value);
 recover_pose on OpenCV's own essential matrices: the same count, a
 bit-equal mask, R and t within 1e-9; triangulate_points on recoverPose's
-inputs within 1e-9 of the point's size. ORB on a
-320x240 rendered frame: at least 80 % of the port's level-0 keypoints within
-1 px of one of cv2.ORB's, the orientations of those within 5 degrees for at
-least 90 %, and the 256-pair table fixed under its seed."""
+inputs within 1e-9 of the point's size. ORB equal to
+cv2.ORB_create(n).detectAndCompute at 320x240, 600x340, 640x480, 752x480
+and 1200x680 on three images for n = 500, 1000, 2000: the same keypoints
+(level and float32 point), equal float32 responses and angles, bit-equal
+descriptors; its pieces bit for bit against OpenCV's (the learned test
+pairs, fastAtan2, the level blur against cv2.sepFilter2D, the steering on
+angles where cosf would round otherwise, a Harris tie at a level's
+budget)."""
+import ctypes
+import ctypes.util
+import hashlib
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
 from hypothesis import given, settings
 from hypothesis import strategies as st
 
+from photo_slam_tpu_torch.tools import synth_replica
 from photo_slam_tpu_torch.tracking import vision
 from test_torch_blend import one_torch_thread  # noqa: F401
 from test_torch_frontend import splat_render, textured_world
@@ -325,15 +335,6 @@ def test_triangulate_points_on_recover_pose_inputs(frame):
         assert (np.abs(got - want).max(0) <= 1e-9 * size).all(), seed
 
 
-def test_brief_pattern_fixed_under_its_seed():
-    pattern = vision.draw_pattern(vision.PATTERN_SEED)
-    np.testing.assert_array_equal(pattern, vision.BRIEF_PATTERN)
-    assert pattern.shape == (256, 4) and np.abs(pattern).max() <= 15
-    assert (pattern[:, :2] != pattern[:, 2:]).any(1).all()
-    assert not np.array_equal(vision.draw_pattern(vision.PATTERN_SEED + 1),
-                              pattern)
-
-
 @pytest.fixture(scope="module")
 def rendered_gray():
     img = splat_render(textured_world(seed=0), np.eye(3),
@@ -342,41 +343,267 @@ def rendered_gray():
     return cv2.cvtColor(u8, cv2.COLOR_RGB2GRAY)
 
 
-def orb_agreement(f, kps):
-    """(share of the port's level-0 keypoints within 1 px of one of
-    OpenCV's, share of those whose orientation is within 5 degrees)."""
-    cv_px = np.array([k.pt for k in kps])
-    cv_lvl = np.array([k.octave for k in kps])
-    cv_ang = np.array([k.angle for k in kps])
-    mine = f.level == 0
-    d = np.linalg.norm(f.px[mine][:, None] - cv_px[cv_lvl == 0][None],
-                       axis=2)
-    near = d.min(1) <= 1.0
-    j = d.argmin(1)
-    dang = np.abs((f.angle[mine] - cv_ang[cv_lvl == 0][j] + 180) % 360
-                  - 180)
-    return near.mean(), (dang[near] < 5.0).mean()
+# ---------------------------------------------------------------------------
+# ORB against cv2.ORB_create
+# ---------------------------------------------------------------------------
+
+ORB_SIZES = [(320, 240), (600, 340), (640, 480), (752, 480), (1200, 680)]
+ORB_IMAGES = ["rendered", "noise", "photograph"]
+PHOTO = str(synth_replica.PHOTO)
+# sha256 of ORB_PATTERN as little-endian int32, the bytes of
+# bit_pattern_31_ in OpenCV's binary.
+ORB_PATTERN_SHA256 = ("7e645581387b82784797e8adddb9b6f0"
+                      "c12611859fda09ca8a9bec96d767a05f")
+# float32 angles (degrees) whose steered tests move when cos and sin are
+# taken by cosf / sinf rather than in double: found by a sweep of every
+# seventh float32 in [0, 360) for a test point whose cvRound changes.
+STEER_ANGLES = [7.257879257202148, 16.17616081237793, 23.137121200561523,
+                26.962949752807617, 27.275827407836914, 27.34601593017578,
+                29.22079849243164, 31.171630859375, 35.4180908203125,
+                43.793182373046875, 69.16156005859375, 111.66106414794922,
+                193.49879455566406, 234.5139923095703, 285.76043701171875,
+                312.41204833984375]
+
+
+def orb_image(kind, size, rendered_gray):
+    """An 8-bit gray test image of `size` (w, h): the rendered frame or the
+    photograph (grey by rgb_to_gray) resized, or seeded noise smoothed by
+    a Gaussian of sigma 2 and stretched to 0-255."""
+    w, h = size
+    if kind == "rendered":
+        return cv2.resize(rendered_gray, size, interpolation=cv2.INTER_LINEAR)
+    if kind == "photograph":
+        rgb = cv2.cvtColor(cv2.imread(PHOTO), cv2.COLOR_BGR2RGB)
+        return cv2.resize(vision.rgb_to_gray(rgb), size,
+                          interpolation=cv2.INTER_AREA)
+    rng = np.random.default_rng(w * 1000 + h)
+    noise = rng.integers(0, 256, (h, w)).astype(np.uint8)
+    return cv2.normalize(cv2.GaussianBlur(noise, (0, 0), 2.0), None, 0, 255,
+                         cv2.NORM_MINMAX)
+
+
+def opencv_orb(gray, n):
+    """cv2.ORB_create(n).detectAndCompute as vision.OrbFeatures."""
+    kps, desc = cv2.ORB_create(nfeatures=n).detectAndCompute(gray, None)
+    return vision.OrbFeatures(
+        np.array([k.pt for k in kps], np.float32).reshape(-1, 2),
+        desc if desc is not None else np.zeros((0, 32), np.uint8),
+        np.array([k.response for k in kps], np.float32),
+        np.array([k.angle for k in kps], np.float32),
+        np.array([k.octave for k in kps], np.int32))
+
+
+def by_position(f):
+    """f's rows sorted by (level, y, x)."""
+    order = np.lexsort((f.px[:, 0], f.px[:, 1], f.level))
+    return vision.OrbFeatures(*(x[order] for x in f))
+
+
+def assert_same_features(got, want):
+    """Equal keypoint sets, responses, angles and descriptors, bit for
+    bit, after sorting both by (level, y, x)."""
+    got, want = by_position(got), by_position(want)
+    for name in vision.OrbFeatures._fields:
+        x, y = getattr(got, name), getattr(want, name)
+        assert x.dtype == y.dtype and x.shape == y.shape, name
+        np.testing.assert_array_equal(x, y, err_msg=name)
+
+
+def test_orb_pattern_is_opencvs():
+    p = vision.ORB_PATTERN
+    assert p.shape == (256, 4) and np.abs(p).max() == 13
+    np.testing.assert_array_equal(p[0], [8, -3, 9, 5])
+    np.testing.assert_array_equal(p[1], [4, 2, 7, -12])
+    np.testing.assert_array_equal(p[-1], [-1, -6, 0, -11])
+    table = p.astype("<i4").tobytes()
+    assert hashlib.sha256(table).hexdigest() == ORB_PATTERN_SHA256
+    binary = sorted(Path(cv2.__file__).parent.glob("cv2*.so"))
+    assert binary and binary[0].read_bytes().count(table) == 1
+
+
+def level_moments(gray):
+    """(m01, m10) of every FAST corner at least 31 px inside each pyramid
+    level of `gray` (ORB's intensity centroid) -> two int64 arrays."""
+    du, dv = vision._tables(torch.device("cpu"))[:2]
+    m01, m10 = [], []
+    for im in vision.pyramid(torch.from_numpy(gray.astype(np.int32))):
+        H, W = im.shape
+        e = vision.EDGE_THRESHOLD
+        if H <= 2 * e or W <= 2 * e:
+            continue
+        ys, xs = torch.nonzero(vision.fast_scores(im)[e:H - e, e:W - e],
+                               as_tuple=True)
+        patch = vision._window_sums(im, ys + e, xs + e, dv, du)
+        m01.append((patch * dv).sum(1))
+        m10.append((patch * du).sum(1))
+    return torch.cat(m01).numpy(), torch.cat(m10).numpy()
+
+
+def test_fast_atan2_matches_opencv(rendered_gray):
+    """Every moment pair of the test images' FAST corners, and the axes,
+    the diagonals and 0 / 0: bit-equal to cv2.fastAtan2."""
+    pairs = [(0, 0), (0, 5), (5, 0), (0, -5), (-5, 0), (7, 7), (-7, 7),
+             (7, -7), (-7, -7), (1, 3000000), (-3000000, 1)]
+    for kind in ORB_IMAGES:
+        for size in ORB_SIZES:
+            m01, m10 = level_moments(orb_image(kind, size, rendered_gray))
+            pairs += list(zip(m01.tolist(), m10.tolist()))
+    pairs = np.unique(np.array(pairs, np.int64), axis=0)
+    assert len(pairs) > 20000
+    y, x = (torch.from_numpy(pairs[:, i].astype(np.float32)) for i in (0, 1))
+    got = vision.fast_atan2(y, x).numpy()
+    want = np.array([cv2.fastAtan2(float(a), float(b)) for a, b in pairs],
+                    np.float32)
+    np.testing.assert_array_equal(got, want)
+    assert got.dtype == np.float32 and (got >= 0).all() and (got < 360).all()
+
+
+def test_orb_level_blur_matches_opencv(rendered_gray):
+    """Each pyramid level of each test image, every pixel, against
+    cv2.sepFilter2D with getGaussianKernel(7, 2, CV_32F) and
+    BORDER_REFLECT_101 (the float path that ORB's in-place blur takes)."""
+    k = cv2.getGaussianKernel(7, 2, ktype=cv2.CV_32F)
+    np.testing.assert_array_equal(np.array(vision.BLUR_TAPS, np.float32),
+                                  k.ravel())
+    for kind in ORB_IMAGES:
+        for size in ORB_SIZES:
+            gray = orb_image(kind, size, rendered_gray)
+            for im in vision.pyramid(torch.from_numpy(gray.astype(np.int32))):
+                level = im.numpy().astype(np.uint8)
+                want = cv2.sepFilter2D(level, -1, k, k,
+                                       borderType=cv2.BORDER_REFLECT_101)
+                got = vision.orb_level_blur(im).numpy()
+                np.testing.assert_array_equal(got, want,
+                                              err_msg=f"{kind} {size}")
+
+
+def test_orb_steering_matches_opencv(monkeypatch):
+    """Descriptors of keypoints at STEER_ANGLES, computed by OpenCV's ORB
+    from the given keypoints, bit-equal to orb_descriptors: the steering
+    takes cos and sin in double, as OpenCV does. Steering through the C
+    library's float cosf and sinf would miss some of them."""
+    rng = np.random.default_rng(1)
+    img = rng.integers(0, 256, (480, 640)).astype(np.uint8)
+    n = 20 * len(STEER_ANGLES)
+    xs, ys = 40 + np.arange(n) % 28 * 20, 40 + np.arange(n) // 28 * 20
+    angles = np.array(STEER_ANGLES * 20, np.float32)
+    kps = [cv2.KeyPoint(float(x), float(y), 31.0, float(a), 0.0, 0)
+           for x, y, a in zip(xs, ys, angles)]
+    kps_cv, desc = cv2.ORB_create().compute(img, kps)
+    assert len(kps_cv) == n
+    np.testing.assert_array_equal([k.angle for k in kps_cv], angles)
+    blurred = vision.orb_level_blur(torch.from_numpy(img.astype(np.int32)))
+    got = vision.orb_descriptors(blurred, torch.from_numpy(ys),
+                                 torch.from_numpy(xs),
+                                 torch.from_numpy(angles)).numpy()
+    np.testing.assert_array_equal(got, desc)
+    # The steering's cos and sin equal libm's double cos and sin, rounded.
+    libm = ctypes.CDLL(ctypes.util.find_library("m"))
+    for name in ("cosf", "sinf"):
+        getattr(libm, name).restype = ctypes.c_float
+        getattr(libm, name).argtypes = [ctypes.c_float]
+    rad = angles[:len(STEER_ANGLES)] * np.float32(np.pi / 180)
+    a, b = vision.orb_steering(torch.from_numpy(angles[:len(STEER_ANGLES)]))
+    np.testing.assert_array_equal(a.numpy(), np.cos(rad.astype(np.float64))
+                                  .astype(np.float32))
+    np.testing.assert_array_equal(b.numpy(), np.sin(rad.astype(np.float64))
+                                  .astype(np.float32))
+    af = np.array([libm.cosf(float(r)) for r in rad], np.float32)
+    bf = np.array([libm.sinf(float(r)) for r in rad], np.float32)
+    assert ((af != a.numpy()) | (bf != b.numpy())).all()
+    single = {float(t): (torch.tensor(c), torch.tensor(s))
+              for t, c, s in zip(angles, af, bf)}
+    monkeypatch.setattr(vision, "orb_steering", lambda ang: tuple(
+        torch.stack(x) for x in zip(*(single[float(t)] for t in ang))))
+    miss = vision.orb_descriptors(blurred, torch.from_numpy(ys),
+                                  torch.from_numpy(xs),
+                                  torch.from_numpy(angles)).numpy()
+    assert (miss != desc).any(1).sum() > 0
+
+
+def test_orb_steering_matches_double_trig():
+    """orb_steering's own double cos and sin, rounded to float32, equal
+    numpy's on 100,000 float32 angles in [0, 360)."""
+    angles = np.random.default_rng(0).uniform(0, 360, 100000).astype(
+        np.float32)
+    rad = (angles * np.float32(np.pi / 180)).astype(np.float64)
+    a, b = vision.orb_steering(torch.from_numpy(angles))
+    np.testing.assert_array_equal(a.numpy(), np.cos(rad).astype(np.float32))
+    np.testing.assert_array_equal(b.numpy(), np.sin(rad).astype(np.float32))
+
+
+def test_orb_harris_tie_kept_as_opencv():
+    """A level whose budget cuts between two equal float32 Harris
+    responses keeps both, as OpenCV's retainBest does; their integer
+    scores 25 (ab - c^2) - (a + b)^2 differ, so a ranking by those would
+    keep one."""
+    rng = np.random.default_rng(1600)
+    noise = rng.integers(0, 256, (340, 600)).astype(np.uint8)
+    gray = cv2.normalize(cv2.GaussianBlur(noise, (0, 0), 3.0), None, 0, 255,
+                         cv2.NORM_MINMAX)
+    got = vision.orb_detect_and_compute(gray, 2000, "cpu")
+    assert_same_features(got, opencv_orb(gray, 2000))
+    budget = vision.level_budget(2000)
+    on2 = got.level == 2
+    assert on2.sum() == budget[2] + 1
+    resp = np.sort(got.resp[on2])
+    assert resp[0] == resp[1]
+    tied = np.nonzero(on2 & (got.resp == resp[0]))[0]
+    s = float(vision.level_scales()[2])
+    xs, ys = (torch.from_numpy(np.rint(got.px[tied, i] / s).astype(np.int64))
+              for i in (0, 1))
+    level = vision.pyramid(torch.from_numpy(gray.astype(np.int32)))[2]
+    a, b, c = vision.harris_sums(level, ys, xs)
+    rank = 25 * (a * b - c * c) - (a + b) * (a + b)
+    assert len(tied) == 2 and rank[0] != rank[1]
+
+
+@pytest.mark.parametrize("n", [500, 1000, 2000])
+@pytest.mark.parametrize("kind", ORB_IMAGES)
+@pytest.mark.parametrize("size", ORB_SIZES, ids=lambda s: f"{s[0]}x{s[1]}")
+def test_orb_bit_equal_to_opencv(size, kind, n, rendered_gray):
+    gray = orb_image(kind, size, rendered_gray)
+    got = vision.orb_detect_and_compute(gray, n, "cpu")
+    want = opencv_orb(gray, n)
+    assert len(want.px) >= min(n, 800) * 0.9
+    assert_same_features(got, want)
+
+
+def test_orb_fixture_digest_is_opencvs():
+    """chip_smoke.py holds the card's ORB of the photograph against this
+    constant on the card's machine (no OpenCV there): OpenCV's features of
+    the same grey image hash to it, and so do the port's on the CPU."""
+    from photo_slam_tpu_torch.io import images
+
+    import chip_smoke
+
+    rgb = images.read_png(PHOTO)[..., :3]
+    np.testing.assert_array_equal(rgb, cv2.cvtColor(cv2.imread(PHOTO),
+                                                    cv2.COLOR_BGR2RGB))
+    gray = vision.rgb_to_gray(rgb)
+    n = chip_smoke.ORB_FIXTURE_FEATURES
+    assert chip_smoke.orb_digest(opencv_orb(gray, n)) == \
+        chip_smoke.ORB_SHA256
+    assert chip_smoke.orb_digest(vision.orb_detect_and_compute(
+        gray, n, "cpu")) == chip_smoke.ORB_SHA256
 
 
 def test_orb_matches_opencv(rendered_gray):
+    """The rendered 320x240 frame at 1000 features: OpenCV's keypoints,
+    responses, angles and descriptors exactly; within a level the port's
+    rows come in raster order."""
     f = vision.orb_detect_and_compute(rendered_gray, 1000, "cpu")
-    kps, desc = cv2.ORB_create(nfeatures=1000).detectAndCompute(
-        rendered_gray, None)
     assert len(f.px) > 300 and f.desc.shape == (len(f.px), 32)
     assert f.desc.dtype == np.uint8 and f.px.dtype == np.float32
-    near, ang = orb_agreement(f, kps)
-    assert near >= 0.8 and ang >= 0.9, (near, ang)
-    # The per-level counts follow the budget as OpenCV's do.
-    cv_lvl = np.array([k.octave for k in kps])
-    counts = np.bincount(f.level, minlength=8)
-    assert (counts <= np.array(vision.level_budget(1000)) + 5).all()
-    assert abs(len(f.px) - len(kps)) <= 0.05 * len(kps), (
-        counts, np.bincount(cv_lvl, minlength=8))
+    assert_same_features(f, opencv_orb(rendered_gray, 1000))
+    key = f.level.astype(np.float64) * 1e7 + f.px[:, 1] * 1e3 + f.px[:, 0]
+    assert (np.diff(key) > 0).all()
+    assert (np.bincount(f.level, minlength=8)
+            <= np.array(vision.level_budget(1000)) + 5).all()
     # Level-0 keypoints lie on whole pixels, at least 31 from the edge.
     p0 = f.px[f.level == 0]
     assert (p0 == np.round(p0)).all() and p0.min() >= 31
     assert (p0[:, 0] < 320 - 31).all() and (p0[:, 1] < 240 - 31).all()
-
 
 def test_orb_descriptors_match_themselves_under_motion(rendered_gray):
     """A one-pixel shift of the image moves every keypoint by one pixel and
