@@ -48,7 +48,7 @@ def use_opencv():
             np.array([k.octave for k in kps], np.int32))
 
     def pnp(obj, img, K, rvec0=None, tvec0=None, use_guess=False,
-            reproj_err=8.0, iters=100, seed=0):
+            reproj_err=8.0, iters=100):
         kw = dict(reprojectionError=reproj_err, iterationsCount=iters,
                   flags=cv2.SOLVEPNP_ITERATIVE)
         if use_guess:

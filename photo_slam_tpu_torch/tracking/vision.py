@@ -9,12 +9,14 @@ and the frontend reaches them only through this module (a test swaps in
 OpenCV's versions):
 
   * rgb_to_gray: OpenCV's fixed-point RGB->gray, bit for bit;
-  * rodrigues / rodrigues_inverse: rotation vector <-> matrix;
+  * rodrigues / rodrigues_inverse: rotation vector <-> matrix, as
+    cv2.Rodrigues computes them, bit for bit;
   * triangulate_points: homogeneous DLT through an SVD per point;
-  * solve_pnp_ransac: P3P minimal samples (a fourth point picks the root)
-    and, with a guess, five-point poses iterated from it (OpenCV's
-    iterative hypotheses) inside RANSAC; the best few refined on their
-    inliers by the native pose_optimize while the inliers grow;
+  * solve_pnp_ransac: cv2.solvePnPRansac with SOLVEPNP_ITERATIVE, bit for
+    bit on the CPU: OpenCV's RANSAC registrator (its own cv::RNG) over
+    EPnP on five-point samples, the winner's inliers refined by OpenCV's
+    Levenberg-Marquardt from the caller's guess (or the winning model),
+    every sum in OpenCV's order (see "OpenCV's own numerics");
   * find_essential_mat / recover_pose: the minimal five-point solver
     (every real solution, the Groebner-basis form of Nister's problem)
     inside RANSAC on OpenCV's scoring (Sampson error, most inliers), the
@@ -28,8 +30,8 @@ OpenCV's versions):
     and alpha 0, initUndistortRectifyMap, remap with INTER_LINEAR), with
     undistort_points (cv2.undistortPoints' five fixed-point iterations).
 
-Every random draw comes from an np.random.Generator seeded per call, so a
-run repeats exactly.
+find_essential_mat draws its samples from an np.random.Generator seeded
+per call, PnP from OpenCV's cv::RNG, so a run repeats exactly.
 
 ORB returns what OpenCV's does: the same keypoints (level and float32
 point), float32 responses and angles, and descriptors bit for bit; only
@@ -49,12 +51,12 @@ bit.
 from __future__ import annotations
 
 import functools
+import math
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from photo_slam_tpu_torch.native import pose_optimize
 
 # ---------------------------------------------------------------------------
 # Colour and rotations
@@ -77,40 +79,16 @@ def rgb_to_gray(u8_hwc: np.ndarray) -> np.ndarray:
 
 
 def rodrigues(rvec) -> np.ndarray:
-    """Rotation vector -> 3x3 rotation matrix (cv2.Rodrigues)."""
-    r = np.asarray(rvec, np.float64).reshape(3)
-    theta = float(np.linalg.norm(r))
-    if theta < np.finfo(np.float64).eps:
-        return np.eye(3)
-    c, s = np.cos(theta), np.sin(theta)
-    k = r / theta
-    kx = np.array([[0.0, -k[2], k[1]], [k[2], 0.0, -k[0]],
-                   [-k[1], k[0], 0.0]])
-    return c * np.eye(3) + (1.0 - c) * np.outer(k, k) + s * kx
+    """Rotation vector -> 3x3 rotation matrix, as cv2.Rodrigues computes it,
+    bit for bit (_rodrigues)."""
+    return _rodrigues(np.asarray(rvec, np.float64).reshape(1, 3))[0][0]
 
 
 def rodrigues_inverse(R) -> np.ndarray:
-    """3x3 rotation matrix -> rotation vector [3, 1] (cv2.Rodrigues): the
-    matrix is first projected onto SO(3) through its SVD."""
-    U, _, Vt = np.linalg.svd(np.asarray(R, np.float64))
-    R = U @ Vt
-    r = np.array([R[2, 1] - R[1, 2], R[0, 2] - R[2, 0], R[1, 0] - R[0, 1]])
-    s = np.sqrt((r @ r) * 0.25)
-    c = float(np.clip((np.trace(R) - 1.0) * 0.5, -1.0, 1.0))
-    theta = np.arccos(c)
-    if s < 1e-5:
-        if c > 0:
-            return np.zeros((3, 1))
-        r = np.array([np.sqrt(max((R[0, 0] + 1.0) * 0.5, 0.0)),
-                      np.sqrt(max((R[1, 1] + 1.0) * 0.5, 0.0))
-                      * (-1.0 if R[0, 1] < 0 else 1.0),
-                      np.sqrt(max((R[2, 2] + 1.0) * 0.5, 0.0))
-                      * (-1.0 if R[0, 2] < 0 else 1.0)])
-        if (abs(r[0]) < abs(r[1]) and abs(r[0]) < abs(r[2])
-                and (R[1, 2] > 0) != (r[1] * r[2] > 0)):
-            r[2] = -r[2]
-        return (r * theta / np.linalg.norm(r)).reshape(3, 1)
-    return (r * theta / (2.0 * s)).reshape(3, 1)
+    """3x3 rotation matrix -> rotation vector [3, 1], as cv2.Rodrigues
+    computes it, bit for bit (_rodrigues_inverse)."""
+    return _rodrigues_inverse(
+        np.asarray(R, np.float64).reshape(1, 3, 3))[0].reshape(3, 1)
 
 
 # ---------------------------------------------------------------------------
@@ -325,6 +303,19 @@ def _family_frame(N, h0, h1):
     return Nf
 
 
+def _batched_rotation(w) -> np.ndarray:
+    """Rotation matrices [B, 3, 3] of rotation vectors w [B, 3]."""
+    th = np.linalg.norm(w, axis=1)[:, None, None]
+    k = np.zeros((len(w), 3, 3))
+    k[:, 0, 1], k[:, 0, 2], k[:, 1, 2] = -w[:, 2], w[:, 1], -w[:, 0]
+    k = k - k.transpose(0, 2, 1)
+    small = th < 1e-8
+    ths = np.where(small, 1.0, th)
+    a = np.where(small, 1.0, np.sin(ths) / ths)
+    b = np.where(small, 0.5, (1 - np.cos(ths)) / ths ** 2)
+    return np.eye(3) + a * k + b * (k @ k)
+
+
 def _epipolar_polish(E, h0, h1):
     """Newton on the five epipolar equations t . (R x0 x x1) = 0 over the
     essential manifold (a rotation increment and t's two tangent
@@ -488,115 +479,386 @@ def find_essential_mat(p0, p1, K, prob: float = 0.999,
     return E, inl.astype(np.uint8).reshape(-1, 1)
 
 
+# ---------------------------------------------------------------------------
+# OpenCV's own numerics, op for op
+# ---------------------------------------------------------------------------
+# The PnP below equals cv2.solvePnPRansac only if every number on its way
+# rounds as OpenCV's does: its minimal solver is ill-conditioned on five
+# points, and its Levenberg-Marquardt takes a finite-difference second
+# derivative with a step of 1e-4, which turns a rounding difference into
+# one of ~1e-8 in the pose. So these follow OpenCV's C++ (and the OpenBLAS
+# it links for large products) in the order of every sum, each fused
+# multiply-add emulated exactly (fma). Sums that C code accumulates left to
+# right go through np.cumsum, which adds in that order.
+
 _DBL_MIN = float(np.finfo(np.float64).tiny)
+_DBL_EPS = float(np.finfo(np.float64).eps)
 _RNG_COEFF = 4164903690
 
 
-def _cv_hypot(a: float, b: float) -> float:
-    """lapack.cpp's own hypot, which rounds unlike the C library's."""
-    a, b = abs(a), abs(b)
-    if a > b:
-        b /= a
-        return a * float(np.sqrt(1.0 + b * b))
-    if b > 0:
-        a /= b
-        return b * float(np.sqrt(1.0 + a * a))
-    return 0.0
+class CvRNG:
+    """cv::RNG: a 64-bit multiply-with-carry generator."""
+
+    def __init__(self, state: int):
+        self.state = state & 0xFFFFFFFFFFFFFFFF or 0xFFFFFFFF
+
+    def next(self) -> int:
+        s = self.state
+        self.state = ((s & 0xFFFFFFFF) * _RNG_COEFF
+                      + (s >> 32)) & 0xFFFFFFFFFFFFFFFF
+        return self.state & 0xFFFFFFFF
+
+    def uniform(self, a: int, b: int) -> int:
+        """An int in [a, b), as RNG::uniform(int, int) draws it."""
+        return a if a == b else self.next() % (b - a) + a
+
+
+def fma(a, b, c):
+    """a * b + c rounded once, as an FMA instruction rounds it: the
+    product split exactly (_two_product), the three parts summed exactly
+    (_two_sum) and rounded at the end."""
+    p, e = _two_product(np.asarray(a, np.float64), np.asarray(b, np.float64))
+    s, t = _two_sum(p, np.asarray(c, np.float64))
+    v, w = _two_sum(t, e)
+    z, y = _two_sum(s, v)
+    return z + (y + w)
+
+
+def _seqdot(a, b):
+    """Sum of a * b over the last axis, added left to right from 0."""
+    return np.cumsum(a * b, axis=-1)[..., -1] + 0.0
+
+
+def norm_l2sqr(v) -> float:
+    """cv::norm(v, NORM_L2SQR) of a double vector as OpenCV's AVX2 build
+    sums it: four fused accumulators of four lanes over blocks of 16, added
+    in order, the lanes pairwise. The tail under 16 is added in order here,
+    which can differ from OpenCV's in the last bit; _levmarq only compares
+    these energies."""
+    v = np.asarray(v, np.float64).ravel()
+    m = len(v) // 16 * 16
+    acc = np.zeros((4, 4))
+    for blk in v[:m].reshape(-1, 4, 4):
+        acc = fma(blk, blk, acc)
+    s = ((acc[0] + acc[1]) + acc[2]) + acc[3]
+    r = (s[0] + s[1]) + (s[2] + s[3])
+    for x in v[m:]:
+        r = r + x * x
+    return float(r)
+
+
+def gemm_at_b(A, b) -> np.ndarray:
+    """cv::gemm(A, b, 1, noArray(), 0, dst, GEMM_1_T), A [K, 6], b [K]. Under
+    100 rows OpenCV's own loop: four running sums over the rows, the rest
+    into the first. From 100 rows OpenBLAS's dgemm: the rows in its K blocks
+    (128 at most; a remainder over 128 and under 256 halved, rounded up
+    to 4), each block summed in order for the first four columns and in
+    four lanes (eight rows a step, the rest into the first lane) for the
+    last two, the blocks added in order."""
+    P = np.asarray(A, np.float64) * np.asarray(b, np.float64)[:, None]
+    n = len(P)
+    if n < 100:
+        m = n // 4 * 4
+        acc = np.zeros((4, P.shape[1]))
+        if m:
+            acc = np.cumsum(P[:m].reshape(-1, 4, P.shape[1]), axis=0)[-1] + 0.0
+        for k in range(m, n):
+            acc[0] = acc[0] + P[k]
+        return ((acc[0] + acc[1]) + acc[2]) + acc[3]
+    out = np.zeros(P.shape[1])
+    lo = 0
+    while lo < n:
+        size = n - lo
+        if size >= 256:
+            size = 128
+        elif size > 128:
+            size = (size // 2 + 3) // 4 * 4
+        blk = P[lo:lo + size]
+        head = np.cumsum(blk[:, :4], axis=0)[-1] + 0.0
+        m = size // 8 * 8
+        lanes = np.cumsum(blk[:m, 4:].reshape(-1, 4, P.shape[1] - 4),
+                          axis=0)[-1] + 0.0
+        for k in range(m, size):
+            lanes[0] = lanes[0] + blk[k, 4:]
+        out = out + np.concatenate(
+            [head, (lanes[0] + lanes[1]) + (lanes[2] + lanes[3])])
+        lo += size
+    return out
+
+
+def mul_transposed(A) -> np.ndarray:
+    """cv::mulTransposed(A, dst, true) of a small double matrix: each entry
+    of A^T A summed over the rows in order."""
+    A = np.asarray(A, np.float64)
+    return np.cumsum(A[..., :, :, None] * A[..., :, None, :],
+                     axis=-3)[..., -1, :, :] + 0.0
+
+
+@functools.lru_cache(maxsize=None)
+def _jacobi_waves(n: int):
+    """The cyclic sweep's pairs (0, 1), (0, 2), ..., (n - 2, n - 1) in waves
+    of disjoint pairs: a pair runs one wave after the last earlier pair that
+    shares a row with it, so each row meets its rotations in the cyclic
+    order and a wave at a time gives the sequential sweep bit for bit."""
+    last = [-1] * n
+    waves = []
+    for i in range(n - 1):
+        for j in range(i + 1, n):
+            w = max(last[i], last[j]) + 1
+            last[i] = last[j] = w
+            if w == len(waves):
+                waves.append(([], []))
+            waves[w][0].append(i)
+            waves[w][1].append(j)
+    return tuple((np.array(i), np.array(j)) for i, j in waves)
+
+
+def jacobi_svd(At, null_vectors: bool = True):
+    """lapack.cpp's JacobiSVDImpl_ on a batch, step for step: At [B, n, m]
+    holds A^T (the n columns of an m x n matrix A, m >= n; cv::SVD runs it
+    under 25 rows, OpenCV 5.0 calls LAPACK from there). One-sided Jacobi
+    rotations with its hypot and formulas until a sweep changes nothing,
+    the descending selection sort, and for a zero singular value a random
+    sign vector from cv::RNG(0x12345678) made orthogonal to the earlier
+    left singular vectors (skipped without null_vectors, for callers that
+    never read those rows). -> (W [B, n], U^T [B, n, m], V^T [B, n, n]),
+    A = U diag(W) V^T, with OpenCV's signs."""
+    At = np.asarray(At, np.float64)
+    B, n, m = At.shape
+    eps = 10.0 * _DBL_EPS
+    # Each row of A^T carries its row of V^T: one rotation turns both.
+    AV = np.concatenate([At, np.broadcast_to(np.eye(n), (B, n, n))], 2)
+    W = _seqdot(At, At)
+    live = np.ones(B, bool)
+    with np.errstate(all="ignore"):
+        for _ in range(max(m, 30)):
+            changed = np.zeros(B, bool)
+            for I, J in _jacobi_waves(n):
+                Ri, Rj = AV[:, I], AV[:, J]
+                a, b = W[:, I], W[:, J]
+                p = _seqdot(Ri[..., :m], Rj[..., :m])
+                rot = ~(np.abs(p) <= eps * np.sqrt(a * b)) & live[:, None]
+                if not rot.any():
+                    continue
+                p = p * 2.0
+                beta = a - b
+                # OpenCV's hypot: the larger times sqrt(1 + ratio^2).
+                big = np.maximum(np.abs(p), np.abs(beta))
+                ratio = np.minimum(np.abs(p), np.abs(beta)) / big
+                gamma = np.where(big > 0, big * np.sqrt(1.0 + ratio * ratio),
+                                 0.0)
+                neg = beta < 0
+                r = np.sqrt(np.where(neg, (gamma - beta) * 0.5 / gamma,
+                                     (gamma + beta) / (gamma * 2.0)))
+                o = p / (gamma * r * 2.0)
+                c = np.where(neg, o, r)[..., None]
+                s = np.where(neg, r, o)[..., None]
+                t0, t1 = c * Ri + s * Rj, -s * Ri + c * Rj
+                w0 = _seqdot(t0[..., :m], t0[..., :m])
+                w1 = _seqdot(t1[..., :m], t1[..., :m])
+                if not rot.all():
+                    keep = rot[..., None]
+                    t0, t1 = np.where(keep, t0, Ri), np.where(keep, t1, Rj)
+                    w0, w1 = np.where(rot, w0, a), np.where(rot, w1, b)
+                AV[:, I], AV[:, J], W[:, I], W[:, J] = t0, t1, w0, w1
+                changed |= rot.any(1)
+            live &= changed
+            if not live.any():
+                break
+    At, Vt = AV[..., :m].copy(), AV[..., m:].copy()
+    W = np.sqrt(_seqdot(At, At))
+    rows = np.arange(B)
+    for i in range(n - 1):
+        j = np.full(B, i)
+        for k in range(i + 1, n):
+            j = np.where(W[rows, j] < W[:, k], k, j)
+        sw = rows[j != i]
+        if len(sw):
+            jj = j[sw]
+            W[sw, i], W[sw, jj] = W[sw, jj], W[sw, i].copy()
+            At[sw, i], At[sw, jj] = At[sw, jj], At[sw, i].copy()
+            Vt[sw, i], Vt[sw, jj] = Vt[sw, jj], Vt[sw, i].copy()
+    with np.errstate(divide="ignore"):
+        At = At * np.where(W > _DBL_MIN, 1.0 / W, 0.0)[..., None]
+    for b in np.nonzero((W <= _DBL_MIN).any(1) & null_vectors)[0]:
+        # Zero singular values (sorted last): each left singular vector is
+        # a random sign vector made orthogonal to the earlier ones, drawn
+        # from one generator per decomposition.
+        rng = CvRNG(0x12345678)
+        for i in np.nonzero(W[b] <= _DBL_MIN)[0]:
+            At[b, i] = _null_vector(At[b], i, m, eps, rng)
+    return W, At, Vt
+
+
+def _null_vector(Ut, i, m, eps, rng):
+    """JacobiSVDImpl_'s left singular vector for a zero singular value at
+    row i, the rows Ut[:i] already normalized."""
+    sd, row, tries = 0.0, Ut[i], 0
+    while tries < 100 and sd <= _DBL_MIN:
+        row = np.array([1.0 / m if rng.next() & 256 else -1.0 / m
+                        for _ in range(m)])
+        for _ in range(2):
+            for j in range(i):
+                row = row - _seqdot(row, Ut[j]) * Ut[j]
+                asum = np.cumsum(np.abs(row))[-1]
+                row = row * (1.0 / asum if asum > eps * 100 else 0.0)
+        sd = float(np.sqrt(_seqdot(row, row)))
+        tries += 1
+    return row * (1.0 / sd if sd > _DBL_MIN else 0.0)
 
 
 def _svd3(A):
-    """(U, W, Vt) of a 3x3 matrix as cv::SVD::compute gives them: the
-    one-sided Jacobi of lapack.cpp's JacobiSVDImpl_ on A^T, step for step
-    (sequential sums, its hypot and rotation formulas, the descending
-    selection sort, cv::RNG(0x12345678) for a zero singular value), so
-    that the columns' signs, and with them which decomposition of an
-    essential matrix is called R1 and which t, are OpenCV's. LAPACK's SVD
-    picks other signs, and recoverPose's tie order would differ."""
-    At = [[float(v) for v in col] for col in np.asarray(A, np.float64).T]
-    eps = 10.0 * float(np.finfo(np.float64).eps)
-    W, Vt = [], [[float(i == k) for k in range(3)] for i in range(3)]
-    for row in At:
-        sd = 0.0
-        for t in row:
-            sd += t * t
-        W.append(sd)
-    for _ in range(30):
-        changed = False
-        for i, j in ((0, 1), (0, 2), (1, 2)):
-            Ai, Aj = At[i], At[j]
-            a, b, p = W[i], W[j], 0.0
-            for k in range(3):
-                p += Ai[k] * Aj[k]
-            if abs(p) <= eps * np.sqrt(a * b):
-                continue
-            p *= 2.0
-            beta = a - b
-            gamma = _cv_hypot(p, beta)
-            if beta < 0:
-                s = float(np.sqrt((gamma - beta) * 0.5 / gamma))
-                c = p / (gamma * s * 2.0)
+    """(U, W, Vt) of a 3x3 matrix as cv::SVD::compute gives them (the
+    Jacobi SVD of jacobi_svd on A^T, so that the columns' signs, and with
+    them which decomposition of an essential matrix is called R1 and which
+    t, are OpenCV's; LAPACK's SVD picks other signs, and recoverPose's tie
+    order would differ)."""
+    W, Ut, Vt = jacobi_svd(np.asarray(A, np.float64).T[None])
+    return Ut[0].T, W[0], Vt[0]
+
+
+def _back_substitute(W, Ut, Vt, b):
+    """SVBkSb for one right-hand side on a batch: x = V diag(1 / W) U^T b,
+    singular values at most 2 eps sum(W) skipped, sums in OpenCV's
+    order. W [B, n], U^T [B, n, m], V^T [B, n, n], b [B, m] -> x [B, n]."""
+    thr = np.cumsum(W, axis=1)[:, -1] * (2.0 * _DBL_EPS)
+    x = np.zeros(W.shape)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        for i in range(W.shape[1]):
+            s = _seqdot(Ut[:, i], b) * (1.0 / W[:, i])
+            x = np.where((np.abs(W[:, i]) <= thr)[:, None], x,
+                         x + s[:, None] * Vt[:, i])
+    return x
+
+
+def svd_solve(A, b) -> np.ndarray:
+    """cv::solve(A, b, x, DECOMP_SVD) on a batch, A [B, m, n] (m >= n),
+    b [B, m] -> x [B, n]. Zero columns of A (padding) change nothing
+    else: their rows of A^T never rotate and their singular values are
+    skipped."""
+    return _back_substitute(*jacobi_svd(np.swapaxes(A, 1, 2), False),
+                            np.asarray(b, np.float64))
+
+
+def svd_invert(A) -> np.ndarray:
+    """cv::invert(A, DECOMP_SVD) of a batch of square matrices [B, n, n]:
+    OpenCV's SVBkSb without a right-hand side takes each column of the
+    identity in turn, as _back_substitute does."""
+    B, n, _ = A.shape
+    svd = jacobi_svd(np.swapaxes(A, 1, 2), False)
+    eye = np.broadcast_to(np.eye(n), (B, n, n))
+    return np.stack([_back_substitute(*svd, eye[:, c]) for c in range(n)],
+                    -1)
+
+
+_EYE9 = np.eye(3).ravel()
+# d[r]_x / dr_i, row i of the 3x9 derivative of the cross-product matrix.
+_D_CROSS = np.array([[0, 0, 0, 0, 0, -1, 0, 1, 0], [0, 0, 1, 0, 0, 0, -1, 0, 0],
+                     [0, -1, 0, 1, 0, 0, 0, 0, 0]], np.float64)
+
+
+def _rodrigues(r):
+    """cvRodrigues2 from rotation vectors r [B, 3]: (R [B, 3, 3], the
+    derivative dR/dr [B, 3, 9] of the row-major R)."""
+    r = np.asarray(r, np.float64).reshape(-1, 3)
+    B = len(r)
+    theta = np.sqrt((r[:, 0] * r[:, 0] + r[:, 1] * r[:, 1]) + r[:, 2] * r[:, 2])
+    c = np.array([math.cos(v) for v in theta])
+    s = np.array([math.sin(v) for v in theta])
+    c1 = 1.0 - c
+    with np.errstate(divide="ignore"):
+        ith = np.where(theta != 0, 1.0 / theta, 0.0)
+    x, y, z = r[:, 0] * ith, r[:, 1] * ith, r[:, 2] * ith
+    zero = np.zeros(B)
+    rrt = np.stack([x * x, x * y, x * z, x * y, y * y, y * z, x * z, y * z,
+                    z * z], 1)
+    r_x = np.stack([zero, -z, y, z, zero, -x, -y, x, zero], 1)
+    R = (c[:, None] * _EYE9 + c1[:, None] * rrt) + s[:, None] * r_x
+    drrt = np.stack([np.stack([x + x, y, z, y, zero, zero, z, zero, zero], 1),
+                     np.stack([zero, x, zero, x, y + y, z, zero, z, zero], 1),
+                     np.stack([zero, zero, x, zero, zero, y, x, y, z + z], 1)],
+                    1)
+    J = np.zeros((B, 3, 9))
+    for i, ri in enumerate((x, y, z)):
+        a0, a1 = -s * ri, (s - 2 * c1 * ith) * ri
+        a2, a3, a4 = c1 * ith, (c - s * ith) * ri, s * ith
+        J[:, i] = ((((a0[:, None] * _EYE9 + a1[:, None] * rrt)
+                     + a2[:, None] * drrt[:, i]) + a3[:, None] * r_x)
+                   + a4[:, None] * _D_CROSS[i])
+    small = theta < _DBL_EPS
+    R[small] = _EYE9
+    J[small] = 0.0
+    J[small, 0, 5] = J[small, 1, 6] = J[small, 2, 1] = -1.0
+    J[small, 0, 7] = J[small, 1, 2] = J[small, 2, 3] = 1.0
+    return R.reshape(B, 3, 3), J
+
+
+def _rodrigues_inverse(R):
+    """cvRodrigues2 from rotation matrices R [B, 3, 3] -> rotation vectors
+    [B, 3]: R projected onto SO(3) through jacobi_svd, then the angle by
+    acos and the axis from the skew part (or, near pi, the diagonal)."""
+    R = np.asarray(R, np.float64).reshape(-1, 3, 3)
+    _, Ut, Vt = jacobi_svd(np.swapaxes(R, 1, 2))
+    P = np.cumsum(Ut[:, :, :, None] * Vt[:, :, None, :], axis=1)[:, -1] + 0.0
+    out = np.zeros((len(R), 3))
+    for b, M in enumerate(P):
+        if not (np.isfinite(R[b]).all() and np.abs(R[b]).max() <= 100):
+            continue
+        rx, ry, rz = M[2, 1] - M[1, 2], M[0, 2] - M[2, 0], M[1, 0] - M[0, 1]
+        s = math.sqrt((rx * rx + ry * ry + rz * rz) * 0.25)
+        c = min(max((M[0, 0] + M[1, 1] + M[2, 2] - 1) * 0.5, -1.0), 1.0)
+        theta = math.acos(c)
+        if s < 1e-5:
+            if c > 0:
+                rx = ry = rz = 0.0
             else:
-                c = float(np.sqrt((gamma + beta) / (gamma * 2.0)))
-                s = p / (gamma * c * 2.0)
-            a = b = 0.0
-            for k in range(3):
-                t0, t1 = c * Ai[k] + s * Aj[k], -s * Ai[k] + c * Aj[k]
-                Ai[k], Aj[k] = t0, t1
-                a += t0 * t0
-                b += t1 * t1
-            W[i], W[j] = a, b
-            changed = True
-            Vi, Vj = Vt[i], Vt[j]
-            for k in range(3):
-                Vi[k], Vj[k] = c * Vi[k] + s * Vj[k], -s * Vi[k] + c * Vj[k]
-        if not changed:
-            break
-    for i, row in enumerate(At):
-        sd = 0.0
-        for t in row:
-            sd += t * t
-        W[i] = float(np.sqrt(sd))
-    for i in range(2):
-        j = i
-        for k in range(i + 1, 3):
-            if W[j] < W[k]:
-                j = k
-        if i != j:
-            W[i], W[j] = W[j], W[i]
-            At[i], At[j] = At[j], At[i]
-            Vt[i], Vt[j] = Vt[j], Vt[i]
-    state = 0x12345678
-    for i in range(3):
-        sd = W[i]
-        tries = 0
-        while tries < 100 and sd <= _DBL_MIN:
-            # A zero singular value: a random sign vector, made orthogonal
-            # to the earlier left singular vectors.
-            row = []
-            for _k in range(3):
-                state = ((state & 0xFFFFFFFF) * _RNG_COEFF
-                         + (state >> 32)) & 0xFFFFFFFFFFFFFFFF
-                row.append(1.0 / 3 if state & 256 else -1.0 / 3)
-            for _ in range(2):
-                for j in range(i):
-                    sd = 0.0
-                    for k in range(3):
-                        sd += row[k] * At[j][k]
-                    asum = 0.0
-                    for k in range(3):
-                        row[k] = row[k] - sd * At[j][k]
-                        asum += abs(row[k])
-                    asum = 1.0 / asum if asum > eps * 100 else 0.0
-                    row = [t * asum for t in row]
-            At[i] = row
-            sd = 0.0
-            for t in row:
-                sd += t * t
-            sd = float(np.sqrt(sd))
-            tries += 1
-        s = 1.0 / sd if sd > _DBL_MIN else 0.0
-        At[i] = [t * s for t in At[i]]
-    return np.array(At).T, np.array(W), np.array(Vt)
+                rx = math.sqrt(max((M[0, 0] + 1) * 0.5, 0.0))
+                ry = (math.sqrt(max((M[1, 1] + 1) * 0.5, 0.0))
+                      * (-1.0 if M[0, 1] < 0 else 1.0))
+                rz = (math.sqrt(max((M[2, 2] + 1) * 0.5, 0.0))
+                      * (-1.0 if M[0, 2] < 0 else 1.0))
+                if (abs(rx) < abs(ry) and abs(rx) < abs(rz)
+                        and (M[1, 2] > 0) != (ry * rz > 0)):
+                    rz = -rz
+                theta /= math.sqrt(rx * rx + ry * ry + rz * rz)
+                rx, ry, rz = rx * theta, ry * theta, rz * theta
+        else:
+            vth = 1 / (2 * s) * theta
+            rx, ry, rz = rx * vth, ry * vth, rz * vth
+        out[b] = rx, ry, rz
+    return out
+
+
+def _project(X, R, t, K, dRdr=None):
+    """cvProjectPoints2 without distortion on a batch of poses: points
+    X [N, 3] (or [B, N, 3]) by R [B, 3, 3], t [B, 3] -> pixels [B, N, 2]
+    and, given dR/dr, the derivative [B, N, 2, 6] by (rvec, tvec)."""
+    X = np.asarray(X, np.float64)
+    Rf, t = R.reshape(-1, 1, 9), t[:, None, :]
+    Xx, Xy, Xz = X[..., 0], X[..., 1], X[..., 2]
+    x = ((Rf[..., 0] * Xx + Rf[..., 1] * Xy) + Rf[..., 2] * Xz) + t[..., 0]
+    y = ((Rf[..., 3] * Xx + Rf[..., 4] * Xy) + Rf[..., 5] * Xz) + t[..., 1]
+    z = ((Rf[..., 6] * Xx + Rf[..., 7] * Xy) + Rf[..., 8] * Xz) + t[..., 2]
+    with np.errstate(divide="ignore", invalid="ignore"):
+        z = np.where(z != 0, 1.0 / z, 1.0)
+    x, y = x * z, y * z
+    fx, fy, cx, cy = K[0, 0], K[1, 1], K[0, 2], K[1, 2]
+    uv = np.stack([x * fx + cx, y * fy + cy], -1)
+    if dRdr is None:
+        return uv
+    d = dRdr[:, None]
+    J = np.zeros(uv.shape + (6,))
+    for j in range(3):
+        dx0 = (Xx * d[..., j, 0] + Xy * d[..., j, 1]) + Xz * d[..., j, 2]
+        dy0 = (Xx * d[..., j, 3] + Xy * d[..., j, 4]) + Xz * d[..., j, 5]
+        dz0 = (Xx * d[..., j, 6] + Xy * d[..., j, 7]) + Xz * d[..., j, 8]
+        J[..., 0, j] = fx * (z * (dx0 - x * dz0))
+        J[..., 1, j] = fy * (z * (dy0 - y * dz0))
+    J[..., 0, 3] = fx * z
+    J[..., 1, 4] = fy * z
+    J[..., 0, 5] = fx * (-x * z)
+    J[..., 1, 5] = fy * (-y * z)
+    return uv, J
 
 
 def recover_pose(E, p0, p1, K, mask=None, distance_thresh: float = 50.0):
@@ -637,254 +899,419 @@ def recover_pose(E, p0, p1, K, mask=None, distance_thresh: float = 50.0):
 
 
 # ---------------------------------------------------------------------------
-# PnP
+# PnP: cv2.solvePnPRansac(..., flags=SOLVEPNP_ITERATIVE), OpenCV 5.0
 # ---------------------------------------------------------------------------
+# solvePnPRansac rounds the points to float32 and runs its RANSAC
+# registrator over five-point samples solved by EPnP (_epnp), scored by
+# projectPoints' float32 squared pixel errors. The winner's inliers, back
+# in double, are refined by solvePnP's Levenberg-Marquardt (_levmarq) from
+# the caller's guess, or without one from the winning model. Five points
+# go to EPnP alone. OpenCV's RANSAC draws from cv::RNG(-1), its own
+# generator: cv::setRNGSeed changes nothing.
 
-def _polymul(a, b):
-    """Products of batched polynomials (highest power first) [B, m], [B, n]
-    -> [B, m + n - 1]."""
-    out = np.zeros((len(a), a.shape[1] + b.shape[1] - 1))
-    for i in range(a.shape[1]):
-        out[:, i:i + b.shape[1]] += a[:, i:i + 1] * b
-    return out
-
-
-def _pad(a, n):
-    return np.concatenate([np.zeros((len(a), n - a.shape[1])), a], 1)
+PNP_CONFIDENCE = 0.99  # solvePnPRansac's default
+PNP_SAMPLE = 5         # points a RANSAC sample takes (EPnP's)
 
 
-def _p3p(W, f):
-    """Batched P3P: world points W [B, 3, 3] and unit bearings f [B, 3, 3]
-    -> up to four poses per sample: R [B, 4, 3, 3], t [B, 4, 3] and a
-    validity mask [B, 4]. With u = s2/s1, v = s3/s1 for the distances s_i
-    along the bearings, the laws of cosines give two quadratics in u whose
-    resultant is a quartic in v; their sum is linear in u."""
-    a2 = ((W[:, 1] - W[:, 2]) ** 2).sum(-1)
-    b2 = ((W[:, 0] - W[:, 2]) ** 2).sum(-1)
-    c2 = ((W[:, 0] - W[:, 1]) ** 2).sum(-1)
-    ca = (f[:, 1] * f[:, 2]).sum(-1)
-    cb = (f[:, 0] * f[:, 2]).sum(-1)
-    cg = (f[:, 0] * f[:, 1]).sum(-1)
-    B = len(W)
-    one = np.ones(B)
-    zero = np.zeros(B)
-    # g(v) = 1 + v^2 - 2 v cb
-    g = np.stack([one, -2 * cb, one], 1)
-    # E1: b2 u^2 - 2 b2 cg u + (b2 - c2 g(v)) = 0
-    p2 = np.stack([b2], 1)
-    p1 = np.stack([-2 * b2 * cg], 1)
-    p0 = -c2[:, None] * g
-    p0[:, 2] += b2
-    # E2: -b2 u^2 + 2 b2 ca v u + (a2 g(v) - b2 v^2) = 0
-    q2 = np.stack([-b2], 1)
-    q1 = np.stack([2 * b2 * ca, zero], 1)
-    q0 = a2[:, None] * g
-    q0[:, 0] -= b2
-    d20 = _pad(_polymul(p2, q0), 3) - _pad(_polymul(p0, q2), 3)
-    d21 = _pad(_polymul(p2, q1), 2) - _pad(_polymul(p1, q2), 2)
-    d10 = _pad(_polymul(p1, q0), 4) - _pad(_polymul(p0, q1), 4)
-    quartic = _pad(_polymul(d20, d20), 5) - _pad(_polymul(d21, d10), 5)
-    lead = quartic[:, 0]
-    scale = np.abs(quartic).max(1)
-    ok_lead = np.abs(lead) > 1e-12 * np.maximum(scale, 1e-300)
-    lead = np.where(ok_lead, lead, 1.0)
-    comp = np.zeros((B, 4, 4))
-    comp[:, 0, :] = -quartic[:, 1:] / lead[:, None]
-    comp[:, 1, 0] = comp[:, 2, 1] = comp[:, 3, 2] = 1.0
-    comp = np.where(np.isfinite(comp), comp, 0.0)
-    roots = np.linalg.eigvals(comp)                           # [B, 4]
-    real = np.abs(roots.imag) <= 1e-8 * np.maximum(1.0, np.abs(roots.real))
-    v = roots.real
-    den = 2 * b2[:, None] * (ca[:, None] * v - cg[:, None])
-    num = -(b2[:, None] - c2[:, None] * (1 + v * v - 2 * v * cb[:, None])
-            + a2[:, None] * (1 + v * v - 2 * v * cb[:, None])
-            - b2[:, None] * v * v)
+def ransac_update_num_iters(p, ep, model_points, max_iters) -> int:
+    """RANSACUpdateNumIters: iterations that draw an all-inlier sample with
+    probability p at outlier ratio ep, at most max_iters."""
+    p, ep = min(max(p, 0.0), 1.0), min(max(ep, 0.0), 1.0)
+    num = max(1.0 - p, _DBL_MIN)
+    denom = 1.0 - math.pow(1.0 - ep, model_points)
+    if denom < _DBL_MIN:
+        return 0
+    num, denom = math.log(num), math.log(denom)
+    if denom >= 0 or -num >= max_iters * -denom:
+        return max_iters
+    return round(num / denom)          # cvRound: halves to even
+
+
+def _ransac_subsets(count, k, n) -> np.ndarray:
+    """RANSACPointSetRegistrator's first n samples of k distinct indices
+    (getSubset: each index drawn again while it repeats one already taken)
+    from its cv::RNG(-1) -> [n, k]."""
+    rng = CvRNG(0xFFFFFFFFFFFFFFFF)
+    out = []
+    for _ in range(n):
+        row = []
+        for _ in range(k):
+            j = rng.uniform(0, count)
+            while j in row:
+                j = rng.uniform(0, count)
+            row.append(j)
+        out.append(row)
+    return np.array(out, np.int64).reshape(n, k)
+
+
+def ransac(count, model_points, kernel, errors, threshold, confidence,
+           max_iters, batch=16):
+    """cv::RANSACPointSetRegistrator::run over `count` correspondences,
+    generic over its kernel: kernel(subsets [b, k]) -> (models [b', ...],
+    subset [b'] each model came from, in order); errors(models) -> float32
+    squared errors [b', count], inliers where at most float32(threshold^2).
+    A model wins with strictly more inliers than the best so far (and than
+    model_points - 1), the iterations cut by ransac_update_num_iters.
+    Subsets do not depend on the models, so the kernel runs on batches of
+    them (batch, then up to 64 a call) and the models are visited in
+    OpenCV's order. -> (best model, inlier mask [count]) or (None, None)."""
+    if count < model_points:
+        return None, None
+    t = np.float32(float(np.float32(threshold)) ** 2)
+    if count == model_points:
+        models, _ = kernel(np.arange(count)[None])
+        if len(models) == 0:
+            return None, None
+        return models[0], np.ones(count, bool)
+    niters = max(max_iters, 1)
+    subsets = _ransac_subsets(count, model_points, niters)
+    best, best_mask, best_good = None, None, 0
+    it = 0
+    while it < niters:
+        b = min(batch, niters - it)
+        models, owner = kernel(subsets[it:it + b])
+        masks = errors(models) <= t
+        goods = masks.sum(1)
+        started = it - 1
+        for j in range(len(models)):
+            if it + owner[j] != started:
+                if it + owner[j] >= niters:   # the loop ended before it
+                    break
+                started = it + owner[j]
+            if goods[j] > max(best_good, model_points - 1):
+                best, best_mask, best_good = models[j], masks[j], int(goods[j])
+                niters = ransac_update_num_iters(
+                    confidence, (count - best_good) / count, model_points,
+                    niters)
+        it += b
+        batch = 64
+    return best, best_mask
+
+
+def _qr_solve(A, b, X):
+    """epnp::qr_solve on a batch, A [B, 6, 4] and b [B, 6] -> x [B, 4]:
+    Householder QR as OpenCV writes it (its column maximum skips the last
+    row, a pointer that trails by one); where A has a zero column OpenCV
+    returns early and x keeps its earlier value X."""
+    A, b = A.copy(), b.copy()
+    B, nr, nc = A.shape
+    A1, A2 = np.zeros((B, nc)), np.zeros((B, nc))
+    ok = np.ones(B, bool)
     with np.errstate(divide="ignore", invalid="ignore"):
-        u = num / den
-        gv = 1 + v * v - 2 * v * cb[:, None]
-        s1 = np.sqrt(b2[:, None] / gv)
-    valid = (ok_lead[:, None] & real & (v > 0) & np.isfinite(u) & (u > 0)
-             & (gv > 0) & np.isfinite(s1))
-    s = np.stack([s1, u * s1, v * s1], -1)                     # [B, 4, 3]
-    s = np.where(valid[..., None], s, 1.0)
-    C = s[..., None] * f[:, None]                              # [B, 4, 3, 3]
-    Wb = np.broadcast_to(W[:, None], C.shape)
-    mw = Wb.mean(2, keepdims=True)
-    mc = C.mean(2, keepdims=True)
-    H = np.einsum("bkni,bknj->bkij", Wb - mw, C - mc)
-    U, _, Vt = np.linalg.svd(H)
-    d = np.sign(np.linalg.det(Vt.transpose(0, 1, 3, 2)
-                              @ U.transpose(0, 1, 3, 2)))
-    D = np.zeros(U.shape)
-    D[..., 0, 0] = D[..., 1, 1] = 1.0
-    D[..., 2, 2] = np.where(d == 0, 1.0, d)
-    R = Vt.transpose(0, 1, 3, 2) @ D @ U.transpose(0, 1, 3, 2)
-    t = mc[:, :, 0] - np.einsum("bkij,bkj->bki", R, mw[:, :, 0])
-    return R, t, valid
+        for k in range(nc):
+            eta = np.abs(A[:, k, k])
+            for i in range(k, nr - 1):
+                elt = np.abs(A[:, i, k])
+                eta = np.where(eta < elt, elt, eta)
+            ok &= eta != 0
+            A[:, k:, k] = A[:, k:, k] * (1.0 / eta)[:, None]
+            sigma = np.sqrt(_seqdot(A[:, k:, k], A[:, k:, k]))
+            sigma = np.where(A[:, k, k] < 0, -sigma, sigma)
+            A[:, k, k] = A[:, k, k] + sigma
+            A1[:, k] = sigma * A[:, k, k]
+            A2[:, k] = -eta * sigma
+            for j in range(k + 1, nc):
+                tau = _seqdot(A[:, k:, k], A[:, k:, j]) / A1[:, k]
+                A[:, k:, j] = A[:, k:, j] - tau[:, None] * A[:, k:, k]
+        for j in range(nc):
+            tau = _seqdot(A[:, j:, j], b[:, j:]) / A1[:, j]
+            b[:, j:] = b[:, j:] - tau[:, None] * A[:, j:, j]
+        x = np.zeros((B, nc))
+        x[:, nc - 1] = b[:, nc - 1] / A2[:, nc - 1]
+        for i in range(nc - 2, -1, -1):
+            x[:, i] = (b[:, i] - _seqdot(A[:, i, i + 1:], x[:, i + 1:])) / A2[:, i]
+    return np.where(ok[:, None], x, X)
 
 
-PNP_REFINED = 10  # RANSAC hypotheses refined before the winner is taken
-PNP_LO_ROUNDS = 4  # refinements of each, while its inliers grow
-PNP_GUESS_SAMPLE = 5   # points per guess-seeded hypothesis (OpenCV's 5)
-PNP_GUESS_ITERS = 10   # Gauss-Newton steps from the guess per hypothesis
+def _dot3(a, b):
+    return (a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1]) + a[..., 2] * b[..., 2]
 
 
-def _batched_rotation(w) -> np.ndarray:
-    """Rotation matrices [B, 3, 3] of rotation vectors w [B, 3]."""
-    th = np.linalg.norm(w, axis=1)[:, None, None]
-    k = np.zeros((len(w), 3, 3))
-    k[:, 0, 1], k[:, 0, 2], k[:, 1, 2] = -w[:, 2], w[:, 1], -w[:, 0]
-    k = k - k.transpose(0, 2, 1)
-    small = th < 1e-8
-    ths = np.where(small, 1.0, th)
-    a = np.where(small, 1.0, np.sin(ths) / ths)
-    b = np.where(small, 0.5, (1 - np.cos(ths)) / ths ** 2)
-    return np.eye(3) + a * k + b * (k @ k)
+_EPNP_PAIRS = ((0, 1), (0, 2), (0, 3), (1, 2), (1, 3), (2, 3))
+# The columns of L_6x10 each beta approximation solves for.
+_EPNP_APPROX = ((0, 1, 3, 6), (0, 1, 2), (0, 1, 2, 3, 4))
 
 
-def _from_guess(obj, img, K, R0, t0, iters=PNP_GUESS_ITERS):
-    """Poses (R [B, 3, 3], t [B, 3]) fitted to each sample of points
-    (obj [B, k, 3], img [B, k, 2]) by damped Gauss-Newton on the pixel
-    error from the guess (R0, t0): the hypotheses of OpenCV's RANSAC with
-    SOLVEPNP_ITERATIVE and an extrinsic guess, which stay near the guess."""
-    nb = len(obj)
-    R = np.repeat(R0[None], nb, 0)
-    t = np.repeat(np.asarray(t0, np.float64).reshape(1, 3), nb, 0)
-    fx, fy = K[0, 0], K[1, 1]
-    for _ in range(iters):
-        Xc = obj @ R.transpose(0, 2, 1) + t[:, None]
-        z = np.where(np.abs(Xc[..., 2]) > 1e-9, Xc[..., 2], 1e-9)
-        x, y = Xc[..., 0], Xc[..., 1]
-        r = np.stack([fx * x / z + K[0, 2] - img[..., 0],
-                      fy * y / z + K[1, 2] - img[..., 1]], -1)
-        # d(pixel)/d(rotation, translation) of a left increment.
-        J = np.zeros(Xc.shape[:2] + (2, 6))
-        J[..., 0, 0] = -fx * x * y / z ** 2
-        J[..., 0, 1] = fx * (1 + x ** 2 / z ** 2)
-        J[..., 0, 2] = -fx * y / z
-        J[..., 1, 0] = -fy * (1 + y ** 2 / z ** 2)
-        J[..., 1, 1] = fy * x * y / z ** 2
-        J[..., 1, 2] = fy * x / z
-        J[..., 0, 3] = fx / z
-        J[..., 0, 5] = -fx * x / z ** 2
-        J[..., 1, 4] = fy / z
-        J[..., 1, 5] = -fy * y / z ** 2
-        J = J.reshape(nb, -1, 6)
-        Jt = J.transpose(0, 2, 1)
-        H = Jt @ J
-        g = (Jt @ r.reshape(nb, -1, 1))[..., 0]
-        H = H + 1e-6 * np.eye(6) * (np.trace(H, axis1=1, axis2=2)[:, None,
-                                                                    None] + 1)
-        step = -np.linalg.solve(H, g[..., None])[..., 0]
-        dR = _batched_rotation(step[:, :3])
-        R = dR @ R
-        t = (dR @ t[..., None])[..., 0] + step[:, 3:]
-    return R, t
+def _epnp(pws, us, K):
+    """OpenCV's epnp::compute_pose on a batch, op for op: world points
+    pws [B, n, 3], pixels us [B, n, 2] -> (R [B, 3, 3], t [B, 3]). Control
+    points by PCA, barycentric coordinates, the null space of M^T M, three
+    approximations of the betas each polished by five Gauss-Newton steps,
+    and the pose of least mean reprojection error."""
+    fu, fv, uc, vc = K[0, 0], K[1, 1], K[0, 2], K[1, 2]
+    B, n, _ = pws.shape
+    with np.errstate(all="ignore"):
+        c0 = (np.cumsum(pws, axis=1)[:, -1] + 0.0) / n
+        dc, uct, _ = jacobi_svd(np.swapaxes(mul_transposed(pws - c0[:, None]),
+                                            1, 2))
+        cws = np.concatenate(
+            [c0[:, None], c0[:, None] + np.sqrt(dc / n)[..., None] * uct], 1)
+        ci = svd_invert(np.swapaxes(cws[:, 1:] - cws[:, :1], 1, 2))
+        d = pws - cws[:, None, 0]
+        al = np.zeros((B, n, 4))
+        for j in range(3):
+            al[..., 1 + j] = _dot3(ci[:, None, j], d)
+        al[..., 0] = ((1.0 - al[..., 1]) - al[..., 2]) - al[..., 3]
+        M = np.zeros((B, n, 2, 12))
+        M[..., 0, 0::3] = al * fu
+        M[..., 0, 2::3] = al * (uc - us[..., 0, None])
+        M[..., 1, 1::3] = al * fv
+        M[..., 1, 2::3] = al * (vc - us[..., 1, None])
+        _, ut, _ = jacobi_svd(np.swapaxes(mul_transposed(M.reshape(B, -1, 12)),
+                                          1, 2))
+        v = ut[:, 11:7:-1].reshape(B, 4, 4, 3)       # rows 11, 10, 9, 8
+        dv = np.stack([v[:, :, a] - v[:, :, b] for a, b in _EPNP_PAIRS], 2)
+        L = np.zeros((B, 6, 10))
+        for col, (i, j) in enumerate(((0, 0), (0, 1), (1, 1), (0, 2), (1, 2),
+                                      (2, 2), (0, 3), (1, 3), (2, 3), (3, 3))):
+            L[..., col] = _dot3(dv[:, i], dv[:, j]) * (1.0 if i == j else 2.0)
+        rho = np.stack([_dot3(cws[:, a] - cws[:, b], cws[:, a] - cws[:, b])
+                        for a, b in _EPNP_PAIRS], 1)
+        # The three systems at once, each zero-padded to five columns.
+        Ls = np.zeros((3, B, 6, 5))
+        for k, cols in enumerate(_EPNP_APPROX):
+            Ls[k, ..., :len(cols)] = L[:, :, cols]
+        sols = svd_solve(Ls.reshape(3 * B, 6, 5),
+                         np.tile(rho, (3, 1))).reshape(3, B, 5)
+        betas = np.zeros((3, B, 4))
+        for k, bb in enumerate(sols):
+            neg = bb[:, 0] < 0
+            b0 = np.sqrt(np.where(neg, -bb[:, 0], bb[:, 0]))
+            if k == 0:
+                betas[k, :, 0] = b0
+                for q in (1, 2, 3):
+                    betas[k, :, q] = np.where(neg, -bb[:, q], bb[:, q]) / b0
+                continue
+            b2 = np.sqrt(np.where(neg, -bb[:, 2], bb[:, 2]))
+            betas[k, :, 1] = np.where(np.where(neg, bb[:, 2] < 0, bb[:, 2] > 0),
+                                      b2, 0.0)
+            b0 = np.where(bb[:, 1] < 0, -b0, b0)
+            betas[k, :, 0] = b0
+            if k == 2:
+                betas[k, :, 2] = bb[:, 3] / b0
+        # gauss_newton, the three approximations at once.
+        betas = betas.reshape(3 * B, 4)
+        L3, rho3 = np.tile(L, (3, 1, 1)), np.tile(rho, (3, 1))
+        x = np.zeros((3 * B, 4))
+        for _ in range(5):
+            x = _qr_solve(*_gauss_newton_system(L3, rho3, betas), x)
+            betas = betas + x
+        R, t, err = _epnp_pose(np.tile(ut, (3, 1, 1)), betas,
+                               np.tile(al, (3, 1, 1)), np.tile(pws, (3, 1, 1)),
+                               np.tile(us, (3, 1, 1)), K)
+    R, t, err = R.reshape(3, B, 3, 3), t.reshape(3, B, 3), err.reshape(3, B)
+    best = np.where(err[1] < err[0], 1, 0)
+    best = np.where(err[2] < err[best, np.arange(B)], 2, best)
+    return R[best, np.arange(B)], t[best, np.arange(B)]
 
 
-def _reprojection(R, t, obj, img, K):
-    """Pixel errors [B, N] of poses R [B, 3, 3], t [B, 3] (inf behind the
-    camera)."""
-    Xc = obj @ R.transpose(0, 2, 1) + t[:, None]
-    z = Xc[..., 2]
-    with np.errstate(divide="ignore", invalid="ignore"):
-        u = K[0, 0] * Xc[..., 0] / z + K[0, 2]
-        v = K[1, 1] * Xc[..., 1] / z + K[1, 2]
-        err = np.hypot(u - img[:, 0], v - img[:, 1])
-    return np.where(z > 0, err, np.inf)
+def _gauss_newton_system(L, rho, be):
+    """epnp::compute_A_and_b_gauss_newton: the Jacobian A [B, 6, 4] and the
+    residual b [B, 6] of rho = L (products of the betas)."""
+    b0, b1, b2, b3 = (be[:, None, q] for q in range(4))
+    l = [L[..., q] for q in range(10)]
+    A = np.stack([((2 * l[0] * b0 + l[1] * b1) + l[3] * b2) + l[6] * b3,
+                  ((l[1] * b0 + 2 * l[2] * b1) + l[4] * b2) + l[7] * b3,
+                  ((l[3] * b0 + l[4] * b1) + 2 * l[5] * b2) + l[8] * b3,
+                  ((l[6] * b0 + l[7] * b1) + l[8] * b2) + 2 * l[9] * b3], -1)
+    terms = (l[0] * b0 * b0, l[1] * b0 * b1, l[2] * b1 * b1, l[3] * b0 * b2,
+             l[4] * b1 * b2, l[5] * b2 * b2, l[6] * b0 * b3, l[7] * b1 * b3,
+             l[8] * b2 * b3, l[9] * b3 * b3)
+    acc = terms[0]
+    for term in terms[1:]:
+        acc = acc + term
+    return A, rho - acc
+
+
+def _epnp_pose(ut, betas, al, pws, us, K):
+    """epnp::compute_R_and_t: control points in the camera from the betas,
+    the sign that puts the first point in front, the absolute orientation
+    through jacobi_svd, and the mean reprojection error."""
+    fu, fv, uc, vc = K[0, 0], K[1, 1], K[0, 2], K[1, 2]
+    B, n, _ = pws.shape
+    ccs = np.zeros((B, 4, 3))
+    for i in range(4):
+        ccs = ccs + betas[:, i, None, None] * ut[:, 11 - i].reshape(B, 4, 3)
+    pcs = (((al[..., 0, None] * ccs[:, None, 0] + al[..., 1, None] * ccs[:, None, 1])
+            + al[..., 2, None] * ccs[:, None, 2]) + al[..., 3, None] * ccs[:, None, 3])
+    pcs = np.where((pcs[:, 0, 2] < 0)[:, None, None], -pcs, pcs)
+    pc0 = (np.cumsum(pcs, axis=1)[:, -1] + 0.0) / n
+    pw0 = (np.cumsum(pws, axis=1)[:, -1] + 0.0) / n
+    abt = np.cumsum((pcs - pc0[:, None])[..., :, None]
+                    * (pws - pw0[:, None])[..., None, :], axis=1)[:, -1] + 0.0
+    _, Ut, Vt = jacobi_svd(np.swapaxes(abt, 1, 2))
+    R = (Ut[:, 0, :, None] * Vt[:, 0, None, :] + Ut[:, 1, :, None] * Vt[:, 1, None, :]
+         + Ut[:, 2, :, None] * Vt[:, 2, None, :])
+    det = (R[:, 0, 0] * R[:, 1, 1] * R[:, 2, 2] + R[:, 0, 1] * R[:, 1, 2] * R[:, 2, 0]
+           + R[:, 0, 2] * R[:, 1, 0] * R[:, 2, 1] - R[:, 0, 2] * R[:, 1, 1] * R[:, 2, 0]
+           - R[:, 0, 1] * R[:, 1, 0] * R[:, 2, 2] - R[:, 0, 0] * R[:, 1, 2] * R[:, 2, 1])
+    R[:, 2] = np.where((det < 0)[:, None], -R[:, 2], R[:, 2])
+    t = pc0 - _dot3(R, pw0[:, None, :])
+    Xc = _dot3(R[:, None, 0], pws) + t[:, None, 0]
+    Yc = _dot3(R[:, None, 1], pws) + t[:, None, 1]
+    inv_z = 1.0 / (_dot3(R[:, None, 2], pws) + t[:, None, 2])
+    du = us[..., 0] - (uc + fu * Xc * inv_z)
+    dv = us[..., 1] - (vc + fv * Yc * inv_z)
+    err = (np.cumsum(np.sqrt(du * du + dv * dv), axis=1)[:, -1] + 0.0) / n
+    return R, t, err
+
+
+def _epnp_models(obj32, img32, K):
+    """solvePnP(..., SOLVEPNP_EPNP) on float32 points [B, k, 3], [B, k, 2]:
+    the pixels undistorted to float32 normalized coordinates, which EPnP
+    maps back through K. -> (rvecs [B, 3], tvecs [B, 3])."""
+    px = img32.astype(np.float64)
+    xn = ((px[..., 0] - K[0, 2]) * (1.0 / K[0, 0])).astype(np.float32)
+    yn = ((px[..., 1] - K[1, 2]) * (1.0 / K[1, 1])).astype(np.float32)
+    us = np.stack([xn.astype(np.float64) * K[0, 0] + K[0, 2],
+                   yn.astype(np.float64) * K[1, 1] + K[1, 2]], -1)
+    R, t = _epnp(obj32.astype(np.float64), us, K)
+    return _rodrigues_inverse(R), t
+
+
+def _pnp_errors(obj, img32, rvecs, tvecs, K):
+    """PnPRansacCallback::computeError for a batch of models: each point
+    projected to float32, its squared distance to the float32 pixel summed
+    in float32 -> [B, N]."""
+    R, _ = _rodrigues(rvecs)
+    with np.errstate(all="ignore"):
+        d = img32[None] - _project(obj, R, tvecs, K).astype(np.float32)
+        return d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]
+
+
+def _pnp_residual(obj, img, K, x, jacobian):
+    """findExtrinsicCameraParams2's callback: projections minus pixels
+    [2N] at x = (rvec, tvec), and their derivative [2N, 6]."""
+    R, dRdr = _rodrigues(x[None, :3])
+    out = _project(obj, R, x[None, 3:], K, dRdr if jacobian else None)
+    if not jacobian:
+        return (out[0] - img).reshape(-1), None
+    return (out[0][0] - img).reshape(-1), out[1][0].reshape(-1, 6)
+
+
+LM_MAX_ITERS = 20      # findExtrinsicCameraParams2's
+LM_GEO_STEP = 1e-4     # cv::LevMarq::Settings' defaults from here on
+LM_GEO_SCALE = 0.5
+LM_TOLERANCE = 1e-6    # step norm^2, relative energy change, gradient
+LM_LAMBDA = 1e-4
+LM_UP, LM_DOWN = 2.0, 3.0
+LM_DIAG_CLAMP = (1e-6, 1e32)
+
+
+def _levmarq(obj, img, K, rvec, tvec):
+    """solvePnP(..., useExtrinsicGuess=true, SOLVEPNP_ITERATIVE): OpenCV
+    5.0's cv::LevMarq on (rvec, tvec) from the guess, as
+    findExtrinsicCameraParams2 sets it up (20 iterations, geodesic
+    acceleration) over points obj [N, 3] and pixels img [N, 2], energy the
+    squared pixel error. Each iteration solves (J^T J + D) x = -J^T e by
+    SVD, D its diagonal times lambda clamped to [1e-6, 1e32]; adds half the
+    geodesic correction, the second derivative along x by a difference
+    with step 1e-4 (when it is shorter than x); keeps the step if the
+    energy did not grow, then scaling lambda by max(1/3, 1 - (2 q - 1)^3)
+    for the step's quality q, else multiplying it by a factor that doubles
+    each time. It stops after 20 iterations, at lambda 1e32, or when the
+    step's squared norm, the gradient or the relative energy change falls
+    under 1e-6. -> (rvec [3], tvec [3])."""
+    h = LM_GEO_STEP
+    x = np.concatenate([np.ravel(rvec), np.ravel(tvec)]).astype(np.float64)
+    err, J = _pnp_residual(obj, img, K, x, True)
+    energy = norm_l2sqr(err)
+    up, lam = LM_UP, LM_LAMBDA
+    fresh = True
+    for _ in range(LM_MAX_ITERS):
+        if fresh:
+            jtj, jtb = mul_transposed(J), gemm_at_b(J, err)
+            diag, max_grad = np.diag(jtj).copy(), np.abs(jtb).max()
+            fresh = False
+        lm_diag = np.minimum(np.maximum(lam * diag, LM_DIAG_CLAMP[0]),
+                             LM_DIAG_CLAMP[1])
+        A = jtj.copy()
+        A[np.diag_indices(6)] = diag + lm_diag
+        # cv::solve decomposes A again for the second system: the same SVD.
+        svd = jacobi_svd(A.T[None], False)
+        step = _back_substitute(*svd, -jtb[None])[0]
+        predicted = _seqdot(step, jtb - lm_diag * step)
+        step_norm = norm_l2sqr(step)
+        # Geodesic acceleration, with OpenCV's own terms and rounding.
+        geo_err, _ = _pnp_residual(obj, img, K, x + step * h, False)
+        inner = fma(jtb, h - 1.0, gemm_at_b(J, geo_err))
+        scale = 1.0 / (h * h)
+        rhs = fma(inner, scale, (h * lm_diag) * step * scale)
+        geo = _back_substitute(*svd, -rhs[None])[0]
+        with np.errstate(divide="ignore", invalid="ignore"):
+            if np.sqrt(np.dot(geo, geo) / np.dot(step, step)) < 1.0:
+                step = step + geo * LM_GEO_SCALE
+        probe = x + step
+        new_err, _ = _pnp_residual(obj, img, K, probe, False)
+        new_energy = norm_l2sqr(new_err)
+        if not new_energy >= 0:       # OpenCV gives up on a bad energy
+            break
+        delta = energy - new_energy
+        if delta < 0:
+            lam *= up
+            up *= 2.0
+            if not lam < LM_DIAG_CLAMP[1]:
+                break
+            continue
+        with np.errstate(divide="ignore", invalid="ignore"):
+            quality = np.float64(delta) / (-0.5 * predicted)
+            rel = np.float64(delta) / new_energy
+        shrink = 1.0 - math.pow(2.0 * quality - 1.0, 3.0)
+        lam *= shrink if shrink > 1.0 / LM_DOWN else 1.0 / LM_DOWN
+        up = LM_UP
+        x, energy = probe, new_energy
+        if (not lam < LM_DIAG_CLAMP[1] or max_grad < LM_TOLERANCE
+                or step_norm < LM_TOLERANCE or rel < LM_TOLERANCE):
+            break
+        err, J = _pnp_residual(obj, img, K, x, True)
+        fresh = True
+    return x[:3], x[3:]
 
 
 def solve_pnp_ransac(obj, img, K, rvec0=None, tvec0=None,
                      use_guess: bool = False, reproj_err: float = 8.0,
-                     iters: int = 100, seed: int = 0):
-    """Camera pose from 3D-2D correspondences with outliers (the role of
-    cv2.solvePnPRansac with SOLVEPNP_ITERATIVE): RANSAC over P3P minimal
-    samples of four points (three solve, the fourth picks the root); with
-    use_guess also the guess (rvec0, tvec0) itself and `iters` more
-    hypotheses iterated from it on samples of five points, as OpenCV's
-    iterative solver does; the inliers are the points within `reproj_err`
-    pixels. The PNP_REFINED hypotheses with the most inliers, and the
-    guess, are each refined on their inliers by the native pose_optimize,
-    their inliers taken again under the refined pose, and the one with the
-    most wins (local optimization: a quarter-inlier set can hand the most
-    raw inliers to a wrong pose). Returns (ok, rvec [3, 1], tvec [3, 1],
-    inliers [M, 1] int32 or None)."""
-    obj = np.asarray(obj, np.float64).reshape(-1, 3)
-    img = np.asarray(img, np.float64).reshape(-1, 2)
+                     iters: int = 100):
+    """Camera pose from 3D-2D correspondences with outliers, as
+    cv2.solvePnPRansac(obj, img, K, None, [rvec0, tvec0, use_guess],
+    reprojectionError=reproj_err, iterationsCount=iters,
+    flags=SOLVEPNP_ITERATIVE) computes it in OpenCV 5.0, bit for bit on
+    the CPU: RANSAC over EPnP on five-point samples (ransac, _epnp), the
+    winner's inliers refined by _levmarq from the guess (with use_guess)
+    or from the winning model; the guess seeds nothing else. Five points
+    go to EPnP alone; fewer (OpenCV solves four by P3P) fail here. Returns
+    (ok, rvec [3, 1], tvec [3, 1], inliers [M, 1] int32 or None); where it
+    fails, the guess (or zeros) and None."""
+    obj32 = np.asarray(obj, np.float64).reshape(-1, 3).astype(np.float32)
+    img32 = np.asarray(img, np.float64).reshape(-1, 2).astype(np.float32)
     K = np.asarray(K, np.float64)
-    n = len(obj)
-    fail = (False, np.zeros((3, 1)), np.zeros((3, 1)), None)
-    if n < 4:
-        return fail
-    rng = np.random.default_rng(seed)
+    n = len(obj32)
     guess = use_guess and rvec0 is not None and tvec0 is not None
-    idx = _samples(rng, n, 4, iters)
-    bear = np.concatenate([_normalized(img, K), np.ones((n, 1))], 1)
-    bear /= np.linalg.norm(bear, axis=1, keepdims=True)
-    R, t, valid = _p3p(obj[idx[:, :3]], bear[idx[:, :3]])
-    # The fourth point of each sample picks its root.
-    Xc = np.einsum("bkij,bj->bki", R, obj[idx[:, 3]]) + t
-    with np.errstate(divide="ignore", invalid="ignore"):
-        uv = Xc[..., :2] / Xc[..., 2:3] * K[[0, 1], [0, 1]] + K[:2, 2]
-        e4 = np.hypot(*(uv - img[idx[:, 3]][:, None]).transpose(2, 0, 1))
-    e4 = np.where(valid & (Xc[..., 2] > 0) & np.isfinite(e4), e4, np.inf)
-    k = np.argmin(e4, axis=1)
-    has = np.isfinite(e4[np.arange(len(k)), k])
-    R, t = R[np.arange(len(k)), k][has], t[np.arange(len(k)), k][has]
-    if guess:
-        R0 = rodrigues(rvec0)
-        t0 = np.asarray(tvec0, np.float64).reshape(1, 3)
-        R, t = np.concatenate([R0[None], R]), np.concatenate([t0, t])
-        if n >= PNP_GUESS_SAMPLE:
-            # OpenCV's hypotheses with an extrinsic guess: each sample's
-            # pose iterated from the guess, which stay near it (samples
-            # from a generator of their own).
-            idx = _samples(np.random.default_rng(seed + 1), n,
-                           PNP_GUESS_SAMPLE, iters)
-            Rg, tg = _from_guess(obj[idx], img[idx], K, R0, t0)
-            ok = np.isfinite(Rg).all((1, 2)) & np.isfinite(tg).all(1)
-            R, t = np.concatenate([R, Rg[ok]]), np.concatenate([t, tg[ok]])
-    return _pnp_best(R, t, obj, img, K, reproj_err, guess, fail)
-
-
-def _pnp_best(R, t, obj, img, K, reproj_err, guess, fail):
-    """The RANSAC winner among the hypotheses (R [B, 3, 3], t [B, 3];
-    with `guess` the first is the guess), refined on its inliers."""
-    if len(R) == 0:
+    r0 = np.asarray(rvec0, np.float64).reshape(3) if guess else np.zeros(3)
+    t0 = np.asarray(tvec0, np.float64).reshape(3) if guess else np.zeros(3)
+    fail = (False, r0.reshape(3, 1).copy(), t0.reshape(3, 1).copy(), None)
+    if n < PNP_SAMPLE:
         return fail
-    inliers = _reprojection(R, t, obj, img, K) < reproj_err
-    counts = inliers.sum(1)
-    # Local optimization: the best hypotheses, and the guess, are each
-    # refined on their own inliers before the winner is taken.
-    cands = list(np.argsort(-counts, kind="stable")[:PNP_REFINED])
-    if guess and 0 not in cands:
-        cands.append(0)
-    best = None
-    for j in cands:
-        inl = inliers[j]
-        if inl.sum() < 4:
-            continue
-        T = np.eye(4)
-        T[:3, :3], T[:3, 3] = R[j], t[j]
-        # Refined again on the inliers of its refinement while they grow.
-        for _ in range(PNP_LO_ROUNDS):
-            _, T2, _ = pose_optimize(obj[inl], img[inl], K[0, 0], K[1, 1],
-                                     K[0, 2], K[1, 2], T)
-            refined = _reprojection(T2[None, :3, :3], T2[None, :3, 3], obj,
-                                    img, K)[0] < reproj_err
-            if refined.sum() < inl.sum():
-                break
-            grew = refined.sum() > inl.sum()
-            T, inl = T2, refined
-            if not grew:
-                break
-        if best is None or inl.sum() > best[1].sum():
-            best = (T, inl)
-    if best is None:
+    if n == PNP_SAMPLE:
+        rv, tv = _epnp_models(obj32[None], img32[None], K)
+        return (True, rv[0].reshape(3, 1), tv[0].reshape(3, 1),
+                np.arange(n, dtype=np.int32).reshape(-1, 1))
+    obj64 = obj32.astype(np.float64)
+
+    def kernel(subsets):
+        rv, tv = _epnp_models(obj32[subsets], img32[subsets], K)
+        return np.concatenate([rv, tv], 1), np.arange(len(subsets))
+
+    def errors(models):
+        return _pnp_errors(obj64, img32, models[:, :3], models[:, 3:], K)
+
+    model, mask = ransac(n, PNP_SAMPLE, kernel, errors, reproj_err,
+                         PNP_CONFIDENCE, iters)
+    if model is None:
         return fail
-    T, inl = best
-    return (True, rodrigues_inverse(T[:3, :3]), T[:3, 3].reshape(3, 1),
-            np.nonzero(inl)[0].astype(np.int32).reshape(-1, 1))
+    start = (r0, t0) if guess else (model[:3], model[3:])
+    r, t = _levmarq(obj64[mask], img32[mask].astype(np.float64), K, *start)
+    return (True, r.reshape(3, 1), t.reshape(3, 1),
+            np.nonzero(mask)[0].astype(np.int32).reshape(-1, 1))
 
 
 # ---------------------------------------------------------------------------

@@ -806,6 +806,44 @@ def test_orb_digest():
         assert cs.orb_digest(a._replace(**{name: x})) != digest, name
 
 
+def test_pnp_fixture_constants_are_opencvs():
+    """chip_smoke.py holds the card host's solve_pnp_ransac to PNP_SHA256
+    and PNP_POSES (no OpenCV on the card's machine): cv2.solvePnPRansac on
+    pnp_fixture_problems gives them, and so does the port on the CPU; and
+    the fixture's check passes here."""
+    cv2 = pytest.importorskip("cv2")
+    from photo_slam_tpu_torch.tracking import vision
+
+    problems = cs.pnp_fixture_problems(vision)
+    assert [len(p[0]) for p in problems] == [f[3] for f in cs.PNP_FIXTURE]
+    want = []
+    for X, px, K, guess, thr, iters in problems:
+        r0, t0 = ((None, None) if guess is None else
+                  (guess[0].reshape(3, 1).copy(), guess[1].reshape(3, 1).copy()))
+        want.append(cv2.solvePnPRansac(X, px, K, None, r0, t0,
+                                       guess is not None, iters, thr, 0.99,
+                                       None, cv2.SOLVEPNP_ITERATIVE))
+    assert cs.pnp_digest(want) == cs.PNP_SHA256
+    got = [cs.solve_fixture(vision, p) for p in problems]
+    assert cs.pnp_digest(got) == cs.PNP_SHA256
+    for (_, r, t, _), (_, gr, gt, _), pose in zip(want, got, cs.PNP_POSES):
+        np.testing.assert_allclose(np.concatenate([r.ravel(), t.ravel()]),
+                                   pose, rtol=0, atol=cs.PNP_POSE_TOL)
+        np.testing.assert_allclose(np.concatenate([gr.ravel(), gt.ravel()]),
+                                   pose, rtol=0, atol=cs.PNP_POSE_TOL)
+    cs.pnp_fixture(vision, "cpu")
+
+
+def test_pnp_digest():
+    """pnp_digest sees the ok flags, every inlier and a missing set."""
+    ok = (True, None, None, np.arange(5, dtype=np.int32).reshape(-1, 1))
+    digest = cs.pnp_digest([ok])
+    assert len(digest) == 64
+    assert cs.pnp_digest([(False,) + ok[1:]]) != digest
+    assert cs.pnp_digest([ok[:3] + (ok[3][:4],)]) != digest
+    assert cs.pnp_digest([ok[:3] + (None,)]) != digest
+
+
 # ---------------------------------------------------------------------------
 # The mono and tum phases' helpers: the method log, the harvest's count of
 # points, the similarity's scale and the TUM tree read back.

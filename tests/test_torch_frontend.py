@@ -13,7 +13,14 @@ must give trajectories within 1e-9, the same keyframe ids and the same
 MappingOperation stream: kinds, keyframes, point counts and payloads,
 compared after the port's save_stream and the JAX load_stream.
 
-With the port's own vision.py, the scenarios of tests/test_frontend.py,
+With nothing of OpenCV swapped into the port (its own gray, ORB,
+Rodrigues, PnP and SGM, each equal to OpenCV's), the RGB-D, distorted,
+loop-closing and stereo-inertial runs and the OrbVoTracker on
+tests/test_tracking.py's frames equal JAX's the same way, OpenCV's
+features put in the port's order on the JAX side
+(test_parity_with_jax_own_vision, test_vo_tracker_parity_with_jax_own_vision);
+mono keeps cv2_vision, its essential matrix still differs. With the port's
+own vision.py, the scenarios of tests/test_frontend.py,
 tests/test_loop_closing.py and tests/test_multimap.py hold at their
 thresholds. The port's own ORB equals OpenCV's: with it and OpenCV's
 other functions, the port runs as the JAX frontend does on OpenCV's
@@ -247,7 +254,7 @@ def cv2_orb(gray, nfeatures, device):
 
 
 def cv2_pnp(obj, img, K, rvec0=None, tvec0=None, use_guess=False,
-            reproj_err=8.0, iters=100, seed=0):
+            reproj_err=8.0, iters=100):
     if use_guess:
         return cv2.solvePnPRansac(
             obj, img, K, None, rvec=rvec0.copy(), tvec=tvec0.copy(),
@@ -518,6 +525,52 @@ def test_parity_with_jax_loop_closing(pan_loop, cv2_vision, tmp_path):
     assert_same_stream(tmp_path, jops_, tops)
 
 
+def own_vision_scenario(name, request):
+    """(frames, frontend kwargs, drive, camera fields, IMU calibration) of
+    the parity scenario `name`, as the tests above set it up."""
+    kw = dict(sensor="rgbd", kf_min_interval=1, kf_tracked_ratio=2.0)
+    if name == "rgbd":
+        return request.getfixturevalue("rgbd_sequence")[1], kw, drive_all, \
+            None, None
+    if name == "distorted_camera":
+        dist = np.array([0.012, -0.004, 0.0005, -0.0003, 0.0], np.float32)
+        return request.getfixturevalue("rgbd_sequence")[1], kw, drive_all, \
+            {"dist_coeffs": dist}, None
+    if name == "loop_closing":
+        kw.update(ba_window=4, loop_min_score=40, loop_min_inliers=20)
+        return request.getfixturevalue("pan_loop")[1], kw, \
+            run_loop_scenario, None, None
+    cam, frames, _ = request.getfixturevalue("stereo_inertial_sequence")
+    kw.update(sensor="stereo", enable_loop_closing=False, use_imu=True)
+    return frames, kw, drive_all, {"stereo_bf": cam.stereo_bf}, \
+        dict(Tbc=np.eye(4), freq=200.0, **synth_euroc.IMU_NOISE)
+
+
+@pytest.mark.parametrize("name", ["rgbd", "distorted_camera", "loop_closing",
+                                  "stereo_inertial"])
+def test_parity_with_jax_own_vision(name, request, tmp_path):
+    """The parity scenarios with nothing of OpenCV in the port: its own
+    gray, ORB, Rodrigues, PnP and SGM against the JAX frontend on OpenCV's
+    (its ORB's features put in the port's order, PortOrderOrb). The same
+    trajectories within TRAJ_TOL, keyframes, points, loops and op
+    stream."""
+    frames, kw, drive, cam_kw, calib = own_vision_scenario(name, request)
+    jops_, tops, jfe, tfe = both_frontends(frames, kw, drive, cam_kw, calib,
+                                           jax_orb=PortOrderOrb)
+    for fn in ("orb_detect_and_compute", "solve_pnp_ransac", "rodrigues",
+               "rodrigues_inverse"):
+        assert getattr(vision, fn).__module__ == vision.__name__, fn
+    assert stereo.disparity_u8.__module__ == stereo.__name__
+    assert len(tfe.map.keyframes) >= 4
+    if name == "loop_closing":
+        assert tfe.num_loops_closed >= 1
+    if name == "stereo_inertial":
+        assert tfe.imu_initialized and jfe.imu_initialized
+        assert tfe.num_scale_refinements == jfe.num_scale_refinements >= 1
+    assert_same_run(jfe, tfe)
+    assert_same_stream(tmp_path, jops_, tops)
+
+
 # ---------------------------------------------------------------------------
 # The JAX tests' scenarios with the port's own vision
 # ---------------------------------------------------------------------------
@@ -756,6 +809,35 @@ def test_stereo_inertial_tracking(stereo_inertial_sequence):
     assert np.degrees(angle) < 3.0
     assert len(fe.stage_times["sgm"]) == len(frames)
     assert all(t > 0 for t in fe.stage_times["sgm"])
+
+
+def test_vo_tracker_parity_with_jax_own_vision():
+    """tests/test_tracking.py's sequence through the JAX OrbVoTracker
+    (OpenCV, its ORB's features put in the port's order) and the port's
+    with nothing of OpenCV swapped in: the same inlier counts and poses
+    within TRAJ_TOL, frame by frame."""
+    import test_tracking
+    from photo_slam_tpu.tracking.gt_tracker import Frame as JFrame
+    from photo_slam_tpu.tracking.vo_tracker import OrbVoTracker as JVo
+    from photo_slam_tpu_torch.tracking.vo_tracker import OrbVoTracker
+
+    jcam = test_tracking.make_camera()
+    world = test_tracking.textured_world()
+    kw = dict(num_features=1200, min_inliers=15, kf_min_interval=1)
+    jvo, vo = JVo(jcam, **kw), OrbVoTracker(make_camera(), device="cpu", **kw)
+    jvo.orb = PortOrderOrb(jvo.orb)
+    for i in range(6):
+        t = np.array([0.06 * i, 0.02 * i, 0.0])
+        img = test_tracking.render_frame(world, t, jcam)
+        depth = np.full((H, W), PLANE_Z, np.float32)
+        fr = dict(image=img, quat_wxyz=np.array([1.0, 0, 0, 0]), trans=t,
+                  depth=depth, filename=f"f{i}")
+        a, b = jvo.track(JFrame(**fr)), vo.track(Frame(**fr))
+        assert not b.lost and b.num_inliers == a.num_inliers
+        assert b.is_keyframe == a.is_keyframe
+    assert len(vo.trajectory) == len(jvo.trajectory) == 6
+    for a, b in zip(jvo.trajectory, vo.trajectory):
+        np.testing.assert_allclose(b, a, rtol=0, atol=TRAJ_TOL)
 
 
 def test_vo_tracker_on_stereo_frames(stereo_inertial_sequence):

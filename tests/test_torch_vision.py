@@ -1,10 +1,15 @@
 """The port's own vision functions (photo_slam_tpu_torch/tracking/vision.py)
 against OpenCV's, on seeded numpy inputs.
 
-Tolerances: rgb_to_gray bit-equal to cv2.cvtColor; rodrigues within 1e-12;
+Tolerances: rgb_to_gray bit-equal to cv2.cvtColor; rodrigues within 1e-12
+(and bit-equal, with its derivative, beside projectPoints);
 triangulate_points within 1e-9 relative (dehomogenized); solve_pnp_ransac
 on noise-free correspondences with 30 % outliers: the pose within 1e-6 and
-the inliers exactly the points within the threshold; find_essential_mat +
+the inliers exactly the points within the threshold; solve_pnp_ransac
+against cv2.solvePnPRansac on 310 seeded scenes and where OpenCV fails:
+the same ok and inliers, the pose within 1e-9; its numerics (CvRNG,
+jacobi_svd, svd_solve, svd_invert, gemm_at_b, mul_transposed, fma)
+bit-equal to OpenCV's, norm_l2sqr on whole blocks of 16; find_essential_mat +
 recover_pose: R within 1e-6 rad, the direction of t within 1e-6. The
 five-point solver on exact minimal samples: one solution equal to the true
 essential matrix within 1e-8 (up to sign), every solution on det(E) = 0 and
@@ -112,6 +117,197 @@ def test_solve_pnp_ransac(use_guess):
                                          reprojectionError=4.0,
                                          iterationsCount=100)
     np.testing.assert_array_equal(np.sort(cv_inl.ravel()), inl.ravel())
+
+
+# ---------------------------------------------------------------------------
+# PnP as cv2.solvePnPRansac computes it (OpenCV 5.0), and its numerics
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("seed", [1, 7, 12345, 2**31 - 1])
+def test_cv_rng_stream_is_opencvs(seed):
+    """CvRNG(seed) draws what cv::theRNG() draws after cv::setRNGSeed(seed)
+    (cv2.randu on int32 takes next() % range, in order)."""
+    cv2.setRNGSeed(seed)
+    want = np.zeros(64, np.int32)
+    cv2.randu(want, 0, 1000)
+    rng = vision.CvRNG(seed)
+    assert [rng.uniform(0, 1000) for _ in range(64)] == want.tolist()
+
+
+@pytest.mark.parametrize("shape", [(3, 3), (6, 4), (6, 3), (6, 5), (6, 6),
+                                   (12, 12), (9, 2), (24, 7)])
+def test_jacobi_svd_matches_opencv(shape):
+    """jacobi_svd on A^T against cv2.SVDecomp(A), bit-equal: W, U, V^T on
+    random, rank-deficient, zero-column and symmetric matrices (whose
+    zero singular values take OpenCV's random vectors)."""
+    rng = np.random.default_rng(shape[0] * 100 + shape[1])
+    m, n = shape
+    for kind in range(8):
+        A = rng.normal(size=(m, n)) * 10.0 ** rng.uniform(-3, 3)
+        if kind == 1:
+            A[:, -1] = A[:, 0]
+        elif kind == 2:
+            A[:, rng.permutation(n)[:rng.integers(1, n)]] = 0.0
+        elif kind == 3 and m == n:
+            A = A @ A.T
+        elif kind == 4 and m == n and n > 2:
+            A[:, -2:] = 0.0
+            A = A @ A.T
+        w, u, vt = cv2.SVDecomp(A)
+        W, Ut, Vt = vision.jacobi_svd(A.T[None])
+        np.testing.assert_array_equal(W[0], w.ravel())
+        np.testing.assert_array_equal(Ut[0].T, u)
+        np.testing.assert_array_equal(Vt[0], vt)
+
+
+def test_svd_solve_and_invert_match_opencv():
+    """svd_solve and svd_invert against cv2.solve and cv2.invert with
+    DECOMP_SVD, bit-equal, singular systems included."""
+    rng = np.random.default_rng(3)
+    for trial in range(40):
+        m, n = [(6, 4), (6, 3), (6, 5), (6, 6), (3, 3)][trial % 5]
+        A = rng.normal(size=(m, n))
+        if trial % 4 == 0:
+            A[:, -1] = 0.0
+        b = rng.normal(size=(m, 1))
+        _, x = cv2.solve(A, b, flags=cv2.DECOMP_SVD)
+        np.testing.assert_array_equal(
+            vision.svd_solve(A[None], b.T)[0], x.ravel())
+        if m == n:
+            _, inv = cv2.invert(A, flags=cv2.DECOMP_SVD)
+            np.testing.assert_array_equal(vision.svd_invert(A[None])[0], inv)
+
+
+def test_opencv_sums_are_opencvs():
+    """The sums OpenCV and its OpenBLAS take, bit-equal: fma against exact
+    rationals, gemm_at_b against cv2.gemm(GEMM_1_T) below and above
+    OpenCV's 100-row BLAS threshold and across OpenBLAS's K blocks,
+    mul_transposed against cv2.mulTransposed, norm_l2sqr against
+    cv2.norm(NORM_L2SQR) on whole blocks of 16 (within 1e-15 relative
+    where a shorter tail remains: only comparisons read it)."""
+    from fractions import Fraction
+
+    rng = np.random.default_rng(4)
+    a, b, c = (rng.normal(size=500) * 10.0 ** rng.uniform(-5, 5, 500)
+               for _ in range(3))
+    exact = [float(Fraction(x) * Fraction(y) + Fraction(z))
+             for x, y, z in zip(a, b, c)]
+    np.testing.assert_array_equal(vision.fma(a, b, c), exact)
+    for n in (6, 15, 16, 17, 32, 99, 100, 127, 128, 129, 255, 256, 300,
+              1001, 2000):
+        e = rng.normal(size=n) * 10.0 ** rng.uniform(-3, 3)
+        J = rng.normal(size=(n, 6)) * 10.0 ** rng.uniform(-2, 2)
+        want = cv2.norm(e[:, None], cv2.NORM_L2SQR)
+        if n % 16:
+            assert abs(vision.norm_l2sqr(e) - want) <= 1e-15 * want
+        else:
+            assert vision.norm_l2sqr(e) == want
+        np.testing.assert_array_equal(
+            vision.gemm_at_b(J, e),
+            cv2.gemm(J, e[:, None], 1, None, 0, flags=cv2.GEMM_1_T).ravel())
+        np.testing.assert_array_equal(vision.mul_transposed(J),
+                                      cv2.mulTransposed(J, True))
+
+
+def test_rodrigues_and_projection_bit_equal():
+    """rodrigues, rodrigues_inverse and _rodrigues' derivative against
+    cv2.Rodrigues, _project and its derivative against cv2.projectPoints
+    (float64 and float32 points), all bit-equal."""
+    rng = np.random.default_rng(5)
+    rvecs = np.concatenate([rng.normal(0, 1, (40, 3)),
+                            [[0, 0, 0], [1e-17, 0, 0], [np.pi, 0, 0],
+                             [0, 3.1, 0.2], [1e-6, -2e-6, 3e-7]]])
+    X = np.stack([rng.uniform(-3, 3, 50), rng.uniform(-2, 2, 50),
+                  rng.uniform(4, 8, 50)], 1)
+    for r in rvecs:
+        R, J = cv2.Rodrigues(r.reshape(3, 1))
+        np.testing.assert_array_equal(vision.rodrigues(r), R)
+        np.testing.assert_array_equal(vision._rodrigues(r)[1][0], J)
+        np.testing.assert_array_equal(vision.rodrigues_inverse(R),
+                                      cv2.Rodrigues(R)[0])
+        t = rng.normal(0, 0.3, 3)
+        for pts in (X, X.astype(np.float32)):
+            want, dp = cv2.projectPoints(pts, r, t, K, None)
+            uv, dj = vision._project(pts.astype(np.float64), R[None], t[None],
+                                     K, J[None])
+            np.testing.assert_array_equal(
+                uv[0].astype(pts.dtype), want.reshape(-1, 2))
+            np.testing.assert_array_equal(dj[0].reshape(-1, 6), dp[:, :6])
+
+
+def pnp_scene(seed, n, noise, outliers, planar=False):
+    """n points seen by a camera near the origin, pixels with Gaussian
+    noise and a share of them replaced by uniform outliers."""
+    rng = np.random.default_rng(seed)
+    z = np.full(n, 5.0) if planar else rng.uniform(4, 8, n)
+    X = np.stack([rng.uniform(-3, 3, n), rng.uniform(-2, 2, n), z], 1)
+    rvec, tvec = rng.normal(0, 0.1, 3), rng.normal(0, 0.3, 3)
+    img = project(vision.rodrigues(rvec), tvec, X) + rng.normal(
+        0, noise, (n, 2))
+    out = rng.random(n) < outliers
+    img[out] = rng.uniform([0, 0], [320, 240], (out.sum(), 2))
+    guess = (rvec + rng.normal(0, 0.02, 3), tvec + rng.normal(0, 0.05, 3))
+    return X, img, guess
+
+
+def assert_pnp_is_opencvs(X, img, guess, thr, iters, use_guess):
+    """solve_pnp_ransac against cv2.solvePnPRansac(SOLVEPNP_ITERATIVE): the
+    same ok, the same inliers, rvec and tvec within 1e-9 (where OpenCV
+    fails without a guess its pose is undefined, and not compared)."""
+    if use_guess:
+        want = cv2.solvePnPRansac(
+            X, img, K, None, guess[0].reshape(3, 1).copy(),
+            guess[1].reshape(3, 1).copy(), True, iters, thr, 0.99, None,
+            cv2.SOLVEPNP_ITERATIVE)
+        got = vision.solve_pnp_ransac(X, img, K, *guess, use_guess=True,
+                                      reproj_err=thr, iters=iters)
+    else:
+        want = cv2.solvePnPRansac(X, img, K, None, None, None, False, iters,
+                                  thr, 0.99, None, cv2.SOLVEPNP_ITERATIVE)
+        got = vision.solve_pnp_ransac(X, img, K, reproj_err=thr, iters=iters)
+    assert got[0] == want[0]
+    assert (got[3] is None) == (want[3] is None)
+    if want[3] is not None:
+        assert got[3].dtype == np.int32 and got[3].shape == want[3].shape
+        np.testing.assert_array_equal(got[3], want[3])
+    if want[0] or use_guess:
+        np.testing.assert_allclose(got[1], want[1], rtol=0, atol=1e-9)
+        np.testing.assert_allclose(got[2], want[2], rtol=0, atol=1e-9)
+    return want[0]
+
+
+# The callers' settings: (reprojectionError, iterationsCount, guess) of
+# tracking the local map, loop verification, relocalization and vo_tracker.
+PNP_SITES = ((4.0, 100, True), (5.0, 200, False), (5.0, 200, False),
+             (3.0, 100, False))
+PNP_SIZES = (5, 6, 7, 9, 12, 20, 35, 60, 100, 180, 300, 600, 1000)
+PNP_GROUPS = 31    # of 10 scenes: 310
+
+
+@pytest.mark.parametrize("group", range(PNP_GROUPS))
+def test_solve_pnp_ransac_matches_opencv(group):
+    """310 seeded scenes against cv2.solvePnPRansac: 5 to 1,000 points,
+    every seventh on a plane, noise of 0 to 2 px, 0 to 60 % outliers, each
+    caller's threshold, iterations and guess."""
+    for k in range(10):
+        s = group * 10 + k
+        n = PNP_SIZES[s % len(PNP_SIZES)]
+        thr, iters, use_guess = PNP_SITES[s % 4]
+        X, img, guess = pnp_scene(s, n, (0.0, 0.5, 1.0, 2.0)[s // 4 % 4],
+                                  (0.0, 0.15, 0.3, 0.45, 0.6)[s // 16 % 5],
+                                  planar=s % 7 == 3)
+        assert_pnp_is_opencvs(X, img, guess, thr, iters, use_guess)
+
+
+@pytest.mark.parametrize("iters", [1, 2, 5, 30])
+def test_solve_pnp_ransac_fails_as_opencv(iters):
+    """Half outliers: with 1, 2 or 5 iterations OpenCV's RANSAC finds no
+    sample of inliers and fails (ok False, no inliers); with 30 it finds
+    one. The port does the same."""
+    X, img, guess = pnp_scene(11, 60, 0.5, 0.5)
+    ok = assert_pnp_is_opencvs(X, img, guess, 4.0, iters, False)
+    assert ok == (iters == 30)
+    assert_pnp_is_opencvs(X, img, guess, 4.0, iters, True)
 
 
 def test_essential_and_recover_pose():
