@@ -11,18 +11,20 @@ OpenCV's versions):
   * rgb_to_gray: OpenCV's fixed-point RGB->gray, bit for bit;
   * rodrigues / rodrigues_inverse: rotation vector <-> matrix, as
     cv2.Rodrigues computes them, bit for bit;
-  * triangulate_points: homogeneous DLT through an SVD per point;
   * solve_pnp_ransac: cv2.solvePnPRansac with SOLVEPNP_ITERATIVE, bit for
     bit on the CPU: OpenCV's RANSAC registrator (its own cv::RNG) over
     EPnP on five-point samples, the winner's inliers refined by OpenCV's
     Levenberg-Marquardt from the caller's guess (or the winning model),
     every sum in OpenCV's order (see "OpenCV's own numerics");
-  * find_essential_mat / recover_pose: the minimal five-point solver
-    (every real solution, the Groebner-basis form of Nister's problem)
-    inside RANSAC on OpenCV's scoring (Sampson error, most inliers), the
-    winner refit on its inliers; recoverPose's four decompositions through
-    OpenCV's own Jacobi SVD (so ties go as OpenCV's do) and the cheirality
-    test by triangulation;
+  * find_essential_mat / recover_pose / triangulate_points:
+    cv2.findEssentialMat(..., RANSAC), cv2.recoverPose and
+    cv2.triangulatePoints, bit for bit on the CPU: the same RANSAC
+    registrator over OpenCV's five-point kernel (its full Jacobi SVD,
+    getCoeffMat's formulas in five_point_terms, an LU solve, cv::solvePoly's
+    sweeps, SVD::solveZ per real root) scored by the float32 Sampson
+    distance; recoverPose's four decompositions and cheirality test on
+    the same triangulation, each point's null vector from OpenCV's Jacobi
+    SVD;
   * orb_detect_and_compute: cv2.ORB_create(nfeatures).detectAndCompute,
     in plain torch on a given device, with OpenCV's learned test pairs;
   * stereo_rectify, init_undistort_rectify_map, remap_linear: the EuRoC
@@ -30,8 +32,8 @@ OpenCV's versions):
     and alpha 0, initUndistortRectifyMap, remap with INTER_LINEAR), with
     undistort_points (cv2.undistortPoints' five fixed-point iterations).
 
-find_essential_mat draws its samples from an np.random.Generator seeded
-per call, PnP from OpenCV's cv::RNG, so a run repeats exactly.
+find_essential_mat and solve_pnp_ransac draw their samples from OpenCV's
+cv::RNG(-1), as OpenCV's registrator does, so a run repeats exactly.
 
 ORB returns what OpenCV's does: the same keypoints (level and float32
 point), float32 responses and angles, and descriptors bit for bit; only
@@ -92,394 +94,6 @@ def rodrigues_inverse(R) -> np.ndarray:
 
 
 # ---------------------------------------------------------------------------
-# Two-view geometry
-# ---------------------------------------------------------------------------
-
-def triangulate_points(P0, P1, p0, p1) -> np.ndarray:
-    """Homogeneous DLT triangulation (cv2.triangulatePoints): P0, P1 [3, 4]
-    projection matrices, p0, p1 [2, N] pixels -> [4, N] homogeneous
-    points, each the right singular vector of its 4x4 system."""
-    P0 = np.asarray(P0, np.float64)
-    P1 = np.asarray(P1, np.float64)
-    p0 = np.asarray(p0, np.float64).reshape(2, -1)
-    p1 = np.asarray(p1, np.float64).reshape(2, -1)
-    A = np.stack([p0[0][:, None] * P0[2] - P0[0],
-                  p0[1][:, None] * P0[2] - P0[1],
-                  p1[0][:, None] * P1[2] - P1[0],
-                  p1[1][:, None] * P1[2] - P1[1]], 1)      # [N, 4, 4]
-    if len(A) == 0:
-        return np.zeros((4, 0))
-    return np.linalg.svd(A)[2][:, 3, :].T
-
-
-def _normalized(px, K) -> np.ndarray:
-    """Pixels [N, 2] -> normalized image coordinates [N, 2]."""
-    px = np.asarray(px, np.float64).reshape(-1, 2)
-    return np.stack([(px[:, 0] - K[0, 2]) / K[0, 0],
-                     (px[:, 1] - K[1, 2]) / K[1, 1]], 1)
-
-
-def _eight_point(x0, x1) -> np.ndarray:
-    """Essential matrices from normalized correspondences [B, M, 2] (M >= 8),
-    Hartley-normalized least squares with the (1, 1, 0) singular values
-    enforced -> [B, 3, 3], with x1^T E x0 = 0."""
-    def conditioner(x):
-        mu = x.mean(1, keepdims=True)
-        d = np.sqrt(((x - mu) ** 2).sum(-1)).mean(1)
-        s = np.sqrt(2.0) / np.maximum(d, 1e-12)
-        T = np.zeros((len(x), 3, 3))
-        T[:, 0, 0] = T[:, 1, 1] = s
-        T[:, :2, 2] = -s[:, None] * mu[:, 0]
-        T[:, 2, 2] = 1.0
-        return T
-
-    T0, T1 = conditioner(x0), conditioner(x1)
-    h0 = np.concatenate([x0, np.ones(x0.shape[:2] + (1,))], -1) @ \
-        T0.transpose(0, 2, 1)
-    h1 = np.concatenate([x1, np.ones(x1.shape[:2] + (1,))], -1) @ \
-        T1.transpose(0, 2, 1)
-    A = (h1[..., :, None] * h0[..., None, :]).reshape(len(x0), -1, 9)
-    F = np.linalg.svd(A, full_matrices=A.shape[1] < 9)[2][:, -1].reshape(
-        -1, 3, 3)
-    U, _, Vt = np.linalg.svd(T1.transpose(0, 2, 1) @ F @ T0)
-    return U @ np.diag([1.0, 1.0, 0.0]) @ Vt / np.sqrt(2.0)
-
-
-def _monomials(degree):
-    """Exponents (x, y, z) of the monomials of degree <= `degree`, those of
-    the highest degree first, each degree in lexicographic order:
-    degree 1 -> x, y, z, 1."""
-    out = []
-    for d in range(degree, -1, -1):
-        out += [(a, b, d - a - b) for a in range(d, -1, -1)
-                for b in range(d - a, -1, -1)]
-    return out
-
-
-def _product_table(left, right, out):
-    """T [len(left), len(right), len(out)] with T[i, j, k] = 1 where
-    monomial left[i] times right[j] is out[k]."""
-    index = {m: k for k, m in enumerate(out)}
-    T = np.zeros((len(left), len(right), len(out)))
-    for i, a in enumerate(left):
-        for j, b in enumerate(right):
-            T[i, j, index[tuple(p + q for p, q in zip(a, b))]] = 1.0
-    return T
-
-
-_MONO1, _MONO2, _MONO3 = _monomials(1), _monomials(2), _monomials(3)
-_MUL11 = _product_table(_MONO1, _MONO1, _MONO2)       # [4, 4, 10]
-_MUL21 = _product_table(_MONO2, _MONO1, _MONO3)       # [10, 4, 20]
-
-
-ESSENTIAL_BATCH = 32  # five-point samples solved and scored at once
-_EPIPOLAR_POLISH = 16    # Newton steps on the epipolar equations, at most
-_ROOT_TOL = 1e-10        # |x1^T E x0| / (|x0| |x1|) of a root
-_SKEW = np.array([[[0.0, 0.0, 0.0], [0.0, 0.0, -1.0], [0.0, 1.0, 0.0]],
-                  [[0.0, 0.0, 1.0], [0.0, 0.0, 0.0], [-1.0, 0.0, 0.0]],
-                  [[0.0, -1.0, 0.0], [1.0, 0.0, 0.0], [0.0, 0.0, 0.0]]])
-_SPLIT = 134217729.0                                   # 2^27 + 1
-# decomposeEssentialMat's W: R = U W V^T or U W^T V^T, t = U's last column.
-_W90 = np.array([[0.0, 1.0, 0.0], [-1.0, 0.0, 0.0], [0.0, 0.0, 1.0]])
-# (coefficient, the cubics x (or y, z) times x^2, xy, xz, y^2, yz, z^2
-# are, the basis monomials it times x, y, z, 1 is) of the linear form whose
-# action _five_point diagonalizes.
-_ACTIONS = ((0.7071, [0, 1, 2, 3, 4, 5], [0, 1, 2, 6]),
-            (0.5377, [1, 3, 4, 6, 7, 8], [1, 3, 4, 7]),
-            (0.4597, [2, 4, 5, 7, 8, 9], [2, 4, 5, 8]))
-
-
-def _two_product(a, b):
-    """a * b as an unevaluated sum p + e, exactly (Dekker's product with
-    Veltkamp's split, no FMA needed)."""
-    p = a * b
-    ca, cb = _SPLIT * a, _SPLIT * b
-    a_hi, b_hi = ca - (ca - a), cb - (cb - b)
-    a_lo, b_lo = a - a_hi, b - b_hi
-    return p, ((a_hi * b_hi - p) + a_hi * b_lo + a_lo * b_hi) + a_lo * b_lo
-
-
-def _two_sum(a, b):
-    """a + b as an unevaluated sum s + e, exactly (Knuth)."""
-    s = a + b
-    z = s - a
-    return s, (a - (s - z)) + (b - z)
-
-
-def _residual(rhs, lead, G):
-    """rhs - lead @ G ([B, n, m]) summed as if in twice the working
-    precision (Ogita, Rump and Oishi's Dot2)."""
-    s, c = rhs, np.zeros_like(rhs)
-    for k in range(lead.shape[2]):
-        p, e = _two_product(-lead[:, :, k, None], G[:, None, k, :])
-        s, e2 = _two_sum(s, p)
-        c = c + (e + e2)
-    return s + c
-
-
-def _poly(outer, table):
-    """Products of polynomials from their coefficients' outer products
-    [..., P, Q] and the product table [P, Q, R] -> [..., R]."""
-    return outer.reshape(outer.shape[:-2] + (-1,)) @ table.reshape(
-        -1, table.shape[-1])
-
-
-def _cubics(N):
-    """The ten cubic constraints det(E) = 0 and 2 E E^T E - tr(E E^T) E = 0
-    on E = x N0 + y N1 + z N2 + N3, for null-space bases N [B, 4, 9]: their
-    coefficients [B, 10, 20] over the monomials of _MONO3."""
-    B = len(N)
-    Ep = N.transpose(0, 2, 1).reshape(B, 3, 3, 4)   # over (x, y, z, 1)
-    EEt = _poly(np.einsum("bikp,bjkq->bijpq", Ep, Ep), _MUL11)
-    EEtE = _poly(np.einsum("bikq,bkjp->bijqp", EEt, Ep), _MUL21)
-    trace = EEt[:, 0, 0] + EEt[:, 1, 1] + EEt[:, 2, 2]
-    trE = _poly(trace[:, None, None, :, None] * Ep[..., None, :], _MUL21)
-    r1, r2 = Ep[:, 1], Ep[:, 2]
-    cof = _poly(r1[:, [1, 2, 0], :, None] * r2[:, [2, 0, 1], None, :]
-                - r1[:, [2, 0, 1], :, None] * r2[:, [1, 2, 0], None, :],
-                _MUL11)                                         # [B, 3, 10]
-    det = _poly(np.einsum("bkq,bkp->bqp", cof, Ep[:, 0]), _MUL21)
-    return np.concatenate([det[:, None],
-                           (2.0 * EEtE - trE).reshape(B, 9, 20)], 1)
-
-
-def _action_roots(N):
-    """The real roots of _cubics(N) [B, 10, 20]: Gauss-Jordan elimination
-    of the ten cubic columns (refined in twice the working precision), the
-    action of a generic linear form on the ten remaining monomials (x^2,
-    xy, xz, y^2, yz, z^2, x, y, z, 1) as a 10x10 matrix, whose eigenvectors
-    give (x, y, z) at each real eigenvalue. -> E [B, 10, 3, 3] (unit
-    norm), valid [B, 10]."""
-    B = len(N)
-    M = _cubics(N)
-    lead = M[:, :, :10]
-    ok = np.abs(np.linalg.det(lead)) > 0
-    lead = np.where(ok[:, None, None], lead, np.eye(10))
-    G = np.linalg.solve(lead, M[:, :, 10:])
-    G = G + np.linalg.solve(lead, _residual(M[:, :, 10:], lead, G))
-    # Each variable times a quadratic is a cubic (-G's rows), times x, y,
-    # z or 1 a basis monomial. A generic form keeps apart two solutions
-    # that share x.
-    act = np.zeros((B, 10, 10))
-    for coef, cubics, lower in _ACTIONS:
-        act[:, :6] -= coef * G[:, cubics]
-        act[:, [6, 7, 8, 9], lower] += coef
-    act = np.where(np.isfinite(act), act, 0.0)
-    lam, vec = np.linalg.eig(act)                  # [B, 10], [B, 10, 10]
-    real = np.abs(lam.imag) <= 1e-8 * np.maximum(1.0, np.abs(lam.real))
-    v = vec.real
-    w = v[:, 9]
-    with np.errstate(divide="ignore", invalid="ignore"):
-        xyz = np.stack([v[:, 6] / w, v[:, 7] / w, v[:, 8] / w], -1)
-    valid = (ok[:, None] & real & (np.abs(w) > 1e-12 * np.abs(v).max(1))
-             & np.isfinite(xyz).all(-1))
-    xyz = np.where(valid[..., None], xyz, 0.0)
-    E = np.concatenate([xyz, np.ones((B, 10, 1))], -1) @ N
-    E /= np.linalg.norm(E, axis=2, keepdims=True)
-    return E.reshape(B, 10, 3, 3), valid
-
-
-def _family_frame(N, h0, h1):
-    """Null-space bases N [B, 4, 9] turned so that the last vector is the
-    one direction of the null space off the family {[s]x R0} (R0 the
-    rotation that best maps the five bearings h0 onto h1), scaled by how
-    far the family lies outside the null space. At small parallax every
-    solution lies near that family, and the monomials at the roots, taken
-    in the standard basis, are nearly dependent: the eigenproblem of
-    _action_roots loses them. In this frame it does not."""
-    B = len(N)
-    f0 = h0 / np.linalg.norm(h0, axis=-1, keepdims=True)
-    f1 = h1 / np.linalg.norm(h1, axis=-1, keepdims=True)
-    U, _, Vt = np.linalg.svd(f1.transpose(0, 2, 1) @ f0)
-    D = np.zeros((B, 3, 3))
-    D[:, 0, 0] = D[:, 1, 1] = 1.0
-    D[:, 2, 2] = np.sign(np.linalg.det(U @ Vt))
-    R0 = U @ D @ Vt
-    S = (_SKEW @ R0[:, None]).reshape(B, 3, 9) / np.sqrt(2.0)  # orthonormal
-    Uc, cos, _ = np.linalg.svd(N @ S.transpose(0, 2, 1))       # [B, 4, 4]
-    off = np.sqrt(np.clip(1.0 - cos ** 2, 0.0, None)).max(1)
-    Nf = Uc.transpose(0, 2, 1) @ N
-    Nf[:, 3] *= np.clip(off, 1e-6, 1.0)[:, None]
-    return Nf
-
-
-def _batched_rotation(w) -> np.ndarray:
-    """Rotation matrices [B, 3, 3] of rotation vectors w [B, 3]."""
-    th = np.linalg.norm(w, axis=1)[:, None, None]
-    k = np.zeros((len(w), 3, 3))
-    k[:, 0, 1], k[:, 0, 2], k[:, 1, 2] = -w[:, 2], w[:, 1], -w[:, 0]
-    k = k - k.transpose(0, 2, 1)
-    small = th < 1e-8
-    ths = np.where(small, 1.0, th)
-    a = np.where(small, 1.0, np.sin(ths) / ths)
-    b = np.where(small, 0.5, (1 - np.cos(ths)) / ths ** 2)
-    return np.eye(3) + a * k + b * (k @ k)
-
-
-def _epipolar_polish(E, h0, h1):
-    """Newton on the five epipolar equations t . (R x0 x x1) = 0 over the
-    essential manifold (a rotation increment and t's two tangent
-    directions), from each E [K, 3, 3] on its homogeneous correspondences
-    h0, h1 [K, 5, 3], each until its step is below 1e-12. This form is far
-    better conditioned than the cubics at small parallax. -> ([t]x R
-    [K, 3, 3] of unit norm, the largest |x1^T E x0| / (|x0| |x1|) [K])."""
-    U, _, Vt = np.linalg.svd(E)
-    U = U * np.where(np.linalg.det(U) < 0, -1.0, 1.0)[:, None, None]
-    Vt = Vt * np.where(np.linalg.det(Vt) < 0, -1.0, 1.0)[:, None, None]
-    R, t = U @ _W90 @ Vt, U[:, :, 2]
-    live = np.arange(len(E))
-    for _ in range(_EPIPOLAR_POLISH):
-        Rl, tl, g0, g1 = R[live], t[live], h0[live], h1[live]
-        Rx0 = g0 @ Rl.transpose(0, 2, 1)                         # [L, 5, 3]
-        c = np.cross(Rx0, g1)
-        axis = np.eye(3)[np.argmin(np.abs(tl), -1)]
-        b1 = np.cross(tl, axis)
-        b1 /= np.linalg.norm(b1, axis=-1, keepdims=True)
-        b2 = np.cross(tl, b1)
-        J = np.concatenate([np.cross(Rx0, np.cross(g1, tl[:, None])),
-                            c @ b1[..., None], c @ b2[..., None]], -1)
-        ok = np.isfinite(J).all((1, 2)) & (np.abs(np.linalg.det(J)) > 0)
-        step = np.linalg.solve(np.where(ok[:, None, None], J, np.eye(5)),
-                               np.where(ok[:, None, None], c @ tl[..., None],
-                                        0.0))[..., 0]           # [L, 5]
-        R[live] = _batched_rotation(-step[:, :3]) @ Rl
-        tl = tl - step[:, 3:4] * b1 - step[:, 4:5] * b2
-        t[live] = tl / np.linalg.norm(tl, axis=-1, keepdims=True)
-        live = live[np.abs(step).max(1) > 1e-12]
-        if not len(live):
-            break
-    E = (_SKEW.reshape(3, 9).T @ t[..., None]).reshape(-1, 3, 3) @ R
-    E /= np.sqrt(2.0)
-    res = np.abs(np.einsum("kni,kij,knj->kn", h1, E, h0)) / (
-        np.linalg.norm(h0, axis=-1) * np.linalg.norm(h1, axis=-1))
-    return E, res.max(-1)
-
-
-def _five_point(x0, x1):
-    """Every real essential matrix of minimal samples: normalized
-    correspondences x0, x1 [B, 5, 2] -> E [B, 10, 3, 3] (unit Frobenius
-    norm, x1^T E x0 = 0) and a validity mask [B, 10].
-
-    The Groebner-basis form of the five-point problem by Stewenius, Engels
-    and Nister (ISPRS J. Photogramm. 2006), which has the solution set of
-    Nister's degree-10 polynomial (cv2.findEssentialMat's five-point.cpp):
-    E = x N0 + y N1 + z N2 + N3 over the null space of the 5x9 epipolar
-    system, the ten cubic constraints, their action matrix (_action_roots).
-    It runs in two frames of the null space, the SVD's and _family_frame's;
-    each root of either is polished on the epipolar equations
-    (_epipolar_polish), kept if they then hold to _ROOT_TOL, and counted
-    once."""
-    B = len(x0)
-    h0 = np.concatenate([x0, np.ones(x0.shape[:2] + (1,))], -1)
-    h1 = np.concatenate([x1, np.ones(x1.shape[:2] + (1,))], -1)
-    A = (h1[..., :, None] * h0[..., None, :]).reshape(B, 5, 9)
-    N = np.linalg.svd(A)[2][:, 5:]                              # [B, 4, 9]
-    E, valid = _action_roots(np.concatenate([N, _family_frame(N, h0, h1)]))
-    E = E.reshape(2, B, 10, 3, 3).transpose(1, 0, 2, 3, 4).reshape(
-        B, 20, 3, 3)
-    valid = valid.reshape(2, B, 10).transpose(1, 0, 2).reshape(B, 20)
-    b, c = np.nonzero(valid)
-    E[b, c], res = _epipolar_polish(E[b, c], h0[b], h1[b])
-    valid[b, c] = res <= _ROOT_TOL
-    flat = E.reshape(B, 20, 9)
-    apart = np.minimum(
-        np.abs(flat[:, :, None] - flat[:, None]).max(-1),
-        np.abs(flat[:, :, None] + flat[:, None]).max(-1))      # [B, 20, 20]
-    seen = valid[:, :, None] & (apart < 1e-6) & np.tri(20, k=-1, dtype=bool).T
-    valid &= ~seen.any(1)
-    order = np.argsort(~valid, axis=1, kind="stable")[:, :10]
-    return (np.take_along_axis(E, order[..., None, None], 1),
-            np.take_along_axis(valid, order, 1))
-
-
-def _sampson(E, x0, x1) -> np.ndarray:
-    """Squared Sampson distances [B, N] of models E [B, 3, 3] on normalized
-    correspondences [N, 2] (OpenCV's essential-matrix error)."""
-    h0 = np.concatenate([x0, np.ones((len(x0), 1))], 1)
-    h1 = np.concatenate([x1, np.ones((len(x1), 1))], 1)
-    Ex0 = E @ h0.T                                             # [B, 3, N]
-    Etx1 = E.transpose(0, 2, 1) @ h1.T
-    num = (h1.T * Ex0).sum(1) ** 2
-    den = Ex0[:, 0] ** 2 + Ex0[:, 1] ** 2 + Etx1[:, 0] ** 2 + Etx1[:, 1] ** 2
-    return num / np.maximum(den, 1e-300)
-
-
-def _ransac_iters(prob, inlier_ratio, sample, cap) -> int:
-    """Iterations that find an all-inlier sample with probability `prob`
-    (OpenCV's RANSACUpdateNumIters)."""
-    ok = inlier_ratio ** sample
-    if ok <= 0.0:
-        return cap
-    if ok >= 1.0:
-        return 0
-    return int(min(cap, np.ceil(np.log(1.0 - prob) / np.log(1.0 - ok))))
-
-
-def _samples(rng, n, k, count) -> np.ndarray:
-    """`count` samples of k distinct indices of range(n) -> [count, k]."""
-    return np.argpartition(rng.random((count, n)), k - 1, axis=1)[:, :k]
-
-
-def _ransac_essential(x0, x1, t2, prob, max_iters, seed):
-    """RANSAC over five-point samples of normalized correspondences, as
-    OpenCV's RANSACPointSetRegistrator runs it for findEssentialMat: every
-    real solution of a sample (_five_point) is scored by its squared
-    Sampson distances against t2; the model with the most inliers wins,
-    the truncated cost sum(min(err, t2)) breaking ties; the iterations cut
-    as the best inlier ratio grows (RANSACUpdateNumIters). -> (E [3, 3],
-    its distances [N], its truncated cost) or None."""
-    n = len(x0)
-    rng = np.random.default_rng(seed)
-    best, best_key = None, (4, 0.0)
-    done, need, batch = 0, max_iters, ESSENTIAL_BATCH
-    while done < need:
-        b = min(batch, need - done)
-        idx = _samples(rng, n, 5, b)
-        E, valid = _five_point(x0[idx], x1[idx])
-        E = E[valid]
-        if len(E):
-            err = _sampson(E, x0, x1)
-            count = (err <= t2).sum(1)
-            cost = np.minimum(err, t2).sum(1)
-            j = int(np.lexsort((cost, -count))[0])
-            if (count[j], -cost[j]) > best_key:
-                best, best_key = (E[j], err[j], cost[j]), (count[j], -cost[j])
-                need = max(done + b, _ransac_iters(prob, count[j] / n, 5,
-                                                   max_iters))
-        done += b
-    return best
-
-
-def find_essential_mat(p0, p1, K, prob: float = 0.999,
-                       threshold: float = 1.0, max_iters: int = 1000,
-                       seed: int = 0):
-    """Essential matrix by RANSAC over five-point samples, as
-    cv2.findEssentialMat(p0, p1, K, RANSAC, prob, threshold) computes it
-    (_ransac_essential), inliers within `threshold` pixels scaled by the
-    mean focal length. OpenCV returns the winning sample's model; here it
-    is refit on its inliers (_eight_point) where that lowers the truncated
-    cost, which on the low-parallax scenes of tests/test_torch_vision.py
-    cuts the median rotation error by a third and more. Returns (E [3, 3]
-    with x1^T E x0 = 0, mask [N, 1] uint8) or (None, None)."""
-    K = np.asarray(K, np.float64)
-    x0, x1 = _normalized(p0, K), _normalized(p1, K)
-    if len(x0) < 5:
-        return None, None
-    t2 = (threshold / ((K[0, 0] + K[1, 1]) * 0.5)) ** 2
-    best = _ransac_essential(x0, x1, t2, prob, max_iters, seed)
-    if best is None:
-        return None, None
-    E, err, cost = best
-    inl = err <= t2
-    if inl.sum() >= 8:
-        E8 = _eight_point(x0[inl][None], x1[inl][None])[0]
-        err = _sampson(E8[None], x0, x1)[0]
-        if np.minimum(err, t2).sum() < cost:
-            E, inl = E8, err <= t2
-    return E, inl.astype(np.uint8).reshape(-1, 1)
-
-
-# ---------------------------------------------------------------------------
 # OpenCV's own numerics, op for op
 # ---------------------------------------------------------------------------
 # The PnP below equals cv2.solvePnPRansac only if every number on its way
@@ -511,6 +125,26 @@ class CvRNG:
     def uniform(self, a: int, b: int) -> int:
         """An int in [a, b), as RNG::uniform(int, int) draws it."""
         return a if a == b else self.next() % (b - a) + a
+
+
+_SPLIT = 134217729.0  # 2^27 + 1, Veltkamp's split
+
+
+def _two_product(a, b):
+    """a * b as an unevaluated sum p + e, exactly (Dekker's product with
+    Veltkamp's split, no FMA needed)."""
+    p = a * b
+    ca, cb = _SPLIT * a, _SPLIT * b
+    a_hi, b_hi = ca - (ca - a), cb - (cb - b)
+    a_lo, b_lo = a - a_hi, b - b_hi
+    return p, ((a_hi * b_hi - p) + a_hi * b_lo + a_lo * b_hi) + a_lo * b_lo
+
+
+def _two_sum(a, b):
+    """a + b as an unevaluated sum s + e, exactly (Knuth)."""
+    s = a + b
+    z = s - a
+    return s, (a - (s - z)) + (b - z)
 
 
 def fma(a, b, c):
@@ -613,7 +247,7 @@ def _jacobi_waves(n: int):
     return tuple((np.array(i), np.array(j)) for i, j in waves)
 
 
-def jacobi_svd(At, null_vectors: bool = True):
+def jacobi_svd(At, null_vectors: bool = True, urows: int | None = None):
     """lapack.cpp's JacobiSVDImpl_ on a batch, step for step: At [B, n, m]
     holds A^T (the n columns of an m x n matrix A, m >= n; cv::SVD runs it
     under 25 rows, OpenCV 5.0 calls LAPACK from there). One-sided Jacobi
@@ -621,8 +255,10 @@ def jacobi_svd(At, null_vectors: bool = True):
     the descending selection sort, and for a zero singular value a random
     sign vector from cv::RNG(0x12345678) made orthogonal to the earlier
     left singular vectors (skipped without null_vectors, for callers that
-    never read those rows). -> (W [B, n], U^T [B, n, m], V^T [B, n, n]),
-    A = U diag(W) V^T, with OpenCV's signs."""
+    never read those rows). With urows (up to m) U^T has that many rows,
+    those past n drawn the same way, as SVD::FULL_UV asks for them.
+    -> (W [B, n], U^T [B, urows or n, m], V^T [B, n, n]), A = U diag(W)
+    V^T, with OpenCV's signs."""
     At = np.asarray(At, np.float64)
     B, n, m = At.shape
     eps = 10.0 * _DBL_EPS
@@ -680,14 +316,50 @@ def jacobi_svd(At, null_vectors: bool = True):
             Vt[sw, i], Vt[sw, jj] = Vt[sw, jj], Vt[sw, i].copy()
     with np.errstate(divide="ignore"):
         At = At * np.where(W > _DBL_MIN, 1.0 / W, 0.0)[..., None]
-    for b in np.nonzero((W <= _DBL_MIN).any(1) & null_vectors)[0]:
-        # Zero singular values (sorted last): each left singular vector is
-        # a random sign vector made orthogonal to the earlier ones, drawn
-        # from one generator per decomposition.
+    n1 = n if urows is None else urows
+    if n1 > n:
+        At = np.concatenate([At, np.zeros((B, n1 - n, m))], 1)
+        slow = (W <= _DBL_MIN).any(1) | ~_extra_rows(At, n, eps)
+    else:
+        slow = (W <= _DBL_MIN).any(1) & null_vectors
+    zero = np.concatenate([W <= _DBL_MIN, np.ones((B, n1 - n), bool)], 1)
+    for b in np.nonzero(slow)[0]:
+        # Zero singular values (sorted last) and the rows past n: each left
+        # singular vector is a random sign vector made orthogonal to the
+        # earlier ones, drawn from one generator per decomposition.
         rng = CvRNG(0x12345678)
-        for i in np.nonzero(W[b] <= _DBL_MIN)[0]:
+        for i in np.nonzero(zero[b])[0]:
             At[b, i] = _null_vector(At[b], i, m, eps, rng)
     return W, At, Vt
+
+
+def _extra_rows(Ut, n, eps) -> np.ndarray:
+    """jacobi_svd's rows n.. of U^T [B, urows, m] (in place) for a batch
+    whose first n singular values are all nonzero: every decomposition
+    draws the same sign vectors from its own cv::RNG(0x12345678), so they
+    are drawn once and made orthogonal to each decomposition's rows
+    together, as _null_vector does one at a time. -> whether a
+    decomposition's vectors came out nonzero at the first draw (where one
+    did not, OpenCV draws again, and the caller takes that one alone)."""
+    B, n1, m = Ut.shape
+    rng = CvRNG(0x12345678)
+    ok = np.ones(B, bool)
+    for i in range(n, n1):
+        row = np.broadcast_to(
+            np.array([1.0 / m if rng.next() & 256 else -1.0 / m
+                      for _ in range(m)]), (B, m))
+        for _ in range(2):
+            for j in range(i):
+                row = row - _seqdot(row, Ut[:, j])[:, None] * Ut[:, j]
+                asum = np.cumsum(np.abs(row), 1)[:, -1]
+                with np.errstate(divide="ignore"):
+                    row = row * np.where(asum > eps * 100, 1.0 / asum,
+                                         0.0)[:, None]
+        sd = np.sqrt(_seqdot(row, row))
+        ok &= sd > _DBL_MIN
+        with np.errstate(divide="ignore"):
+            Ut[:, i] = row * np.where(sd > _DBL_MIN, 1.0 / sd, 0.0)[:, None]
+    return ok
 
 
 def _null_vector(Ut, i, m, eps, rng):
@@ -861,25 +533,471 @@ def _project(X, R, t, K, dRdr=None):
     return uv, J
 
 
+# ---------------------------------------------------------------------------
+# Two-view geometry: cv2.findEssentialMat(..., RANSAC), cv2.recoverPose and
+# cv2.triangulatePoints, OpenCV 5.0
+# ---------------------------------------------------------------------------
+# findEssentialMat normalizes the pixels, scales the threshold by the mean
+# focal length and runs the RANSAC registrator (ransac, below) over
+# five-point samples. Its kernel, EMEstimatorCallback::runKernel, takes
+# the null space of the 5 x 9 epipolar system from a full Jacobi SVD (the
+# four vectors past the rank are jacobi_svd's random sign vectors, drawn
+# from cv::RNG(0x12345678) and made orthogonal), builds the 10 x 20
+# matrix of cubic constraints (getCoeffMat), eliminates with an LU solve
+# (lu_solve), forms the degree-10 polynomial in z and finds its roots with
+# cv::solvePoly (solve_poly: OpenCV 5.0's start on a circle and its 300
+# Weierstrass sweeps, which never stop early on these polynomials), then
+# for each real root takes x and y from the last right singular vector of
+# a 3 x 3 system (SVD::solveZ) and forms E through addWeighted, scaleAdd
+# and add (fused multiply-adds in OpenCV's vector build, emulated by fma),
+# divided by its norm. The two big formulas are five_point_terms' text,
+# evaluated in the compiled code's order (SumsOfProducts). Models are
+# scored by the Sampson distance in double stored as float32
+# (_sampson_errors). Every step was held to the opencv-python 5.0.0 wheel,
+# step by step where OpenCV exposes it (cv2.solvePoly, cv2.solve,
+# cv2.SVDecomp, cv2.addWeighted, cv2.scaleAdd, cv2.norm, cv2.gemm,
+# cv2.decomposeEssentialMat) and through cv2.findEssentialMat's stacked
+# roots on exactly five correspondences elsewhere.
+
+ESSENTIAL_SAMPLE = 5         # correspondences a five-point sample takes
+# Subsets solved at once, first and later: solve_poly's sweeps cost about
+# the same for 64 samples as for 16, so the first batch is PnP's four times.
+ESSENTIAL_BATCHES = (64, 256)
+POLY_ITERS = 300             # cv::solvePoly's default, as runKernel calls it
+_ROOT_IMAG = 1e-10           # runKernel's bound on a real root's imaginary part
+# decomposeEssentialMat's W: R = U W V^T or U W^T V^T, t = U's last column.
+_W90 = np.array([[0.0, 1.0, 0.0], [-1.0, 0.0, 0.0], [0.0, 0.0, 1.0]])
+
+
+def _normalized(px, K) -> np.ndarray:
+    """Pixels [N, 2] -> normalized image coordinates [N, 2], as
+    findEssentialMat and recoverPose compute them: (x - cx) / fx becomes
+    convertTo's x * (1 / fx) + (-cx) * (1 / fx), one fused multiply-add."""
+    px = np.asarray(px, np.float64).reshape(-1, 2)
+    fx, fy, cx, cy = K[0, 0], K[1, 1], K[0, 2], K[1, 2]
+    return np.stack([fma(px[:, 0], 1.0 / fx, -cx * (1.0 / fx)),
+                     fma(px[:, 1], 1.0 / fy, -cy * (1.0 / fy))], 1)
+
+
+def triangulate_points(P0, P1, p0, p1) -> np.ndarray:
+    """cv2.triangulatePoints, bit for bit: P0, P1 [3, 4] projection
+    matrices, p0, p1 [2, N] points -> [4, N] homogeneous points. Each
+    point's 4x4 system has the rows x0 P0[2] - P0[0], y0 P0[2] - P0[1],
+    x1 P1[2] - P1[0], y1 P1[2] - P1[1]; its solution is the last row of
+    V^T from OpenCV's Jacobi SVD (jacobi_svd, batched over the points), with
+    OpenCV's sign. Computed in double; float32 points give float32 output,
+    as OpenCV's do."""
+    dtype = np.float32 if np.asarray(p0).dtype == np.float32 else np.float64
+    P0 = np.asarray(P0, np.float64)
+    P1 = np.asarray(P1, np.float64)
+    p0 = np.asarray(p0, np.float64).reshape(2, -1)
+    p1 = np.asarray(p1, np.float64).reshape(2, -1)
+    A = np.stack([p0[0][:, None] * P0[2] - P0[0],
+                  p0[1][:, None] * P0[2] - P0[1],
+                  p1[0][:, None] * P1[2] - P1[0],
+                  p1[1][:, None] * P1[2] - P1[1]], 1)      # [N, 4, 4]
+    if len(A) == 0:
+        return np.zeros((4, 0), dtype)
+    _, _, Vt = jacobi_svd(np.swapaxes(A, 1, 2), False)
+    return Vt[:, 3].T.astype(dtype)
+
+
+class SumsOfProducts:
+    """Formulas written as sums of products (five_point_terms' layout:
+    "<label>: t0 + t1 - t2 ..." with continuation lines), evaluated on a
+    batch so that every entry rounds as written: each product left to
+    right, each sum left to right from its first term. Variables are
+    <letter><k> and, with powers, <letter>2_<k> (the square) and
+    <letter>3_<k> (the square times the variable); constants are positive
+    literals. All terms are evaluated at once (padded with 1.0, an exact
+    factor) and summed a column at a time (padded with -0.0, an exact
+    addend)."""
+
+    def __init__(self, text: str, nvars: int, powers: int = 1):
+        entries = []
+        for line in text.strip().splitlines():
+            if line.startswith(" "):
+                entries[-1] += " " + line.strip()
+            else:
+                entries.append(line.split(":", 1)[1].strip())
+        consts, terms, rows = {}, [], []
+
+        def index(tok):
+            name, _, power = tok.partition("_")
+            if name[0].isalpha():
+                k = int(power) if power else int(name[1:])
+                p = int(name[1:]) if power else 1
+                return (p - 1) * nvars + k
+            return nvars * powers + consts.setdefault(float(tok), len(consts))
+
+        for entry in entries:
+            toks = entry.split()
+            if toks[0].startswith("-"):
+                toks[0:1] = ["-", toks[0][1:]]
+            else:
+                toks.insert(0, "+")
+            row = []
+            for sign, term in zip(toks[0::2], toks[1::2]):
+                row.append(len(terms))
+                terms.append((-1.0 if sign == "-" else 1.0,
+                              [index(f) for f in term.split("*")]))
+            rows.append(row)
+        one = nvars * powers + len(consts)
+        width = max(len(f) for _, f in terms)
+        self.factors = np.full((len(terms), width), one, np.int64)
+        for t, (_, f) in enumerate(terms):
+            self.factors[t, :len(f)] = f
+        self.signs = np.array([s for s, _ in terms])[:, None]
+        self.consts = np.array(list(consts) + [1.0])
+        self.order = np.full((len(rows), max(map(len, rows))), len(terms),
+                             np.int64)
+        for r, row in enumerate(rows):
+            self.order[r, :len(row)] = row
+        self.powers = powers
+
+    def __call__(self, x) -> np.ndarray:
+        """x [B, nvars] -> [B, entries]."""
+        x = np.asarray(x, np.float64)
+        cols = [x]
+        for _ in range(self.powers - 1):
+            cols.append(cols[-1] * x)
+        cols.append(np.broadcast_to(self.consts, (len(x), len(self.consts))))
+        values = np.concatenate(cols, 1).T                      # [V, B]
+        prod = values[self.factors[:, 0]]
+        for j in range(1, self.factors.shape[1]):
+            prod = prod * values[self.factors[:, j]]
+        prod = np.concatenate([prod * self.signs,
+                               np.full((1, len(x)), -0.0)])
+        acc = np.full((len(self.order), len(x)), -0.0)
+        for j in range(self.order.shape[1]):
+            acc = acc + prod[self.order[:, j]]
+        return acc.T
+
+
+@functools.lru_cache(maxsize=None)
+def _five_point_formulas():
+    from photo_slam_tpu_torch.tracking import five_point_terms
+
+    return (SumsOfProducts(five_point_terms.COEFFS, 36, 3),
+            SumsOfProducts(five_point_terms.POLY, 39))
+
+
+def lu_solve(A, b):
+    """cv::solve(A, b, x, DECOMP_LU) on a batch, A [B, m, m], b [B, m, k]:
+    OpenCV's LUImpl (partial pivoting on the first largest |pivot|, row
+    operations a_jk += alpha a_ik, back substitution summed in order).
+    A pivot under 100 DBL_EPSILON fails the solve, and x is 0 there, as
+    OpenCV's is. -> x [B, m, k]."""
+    A = np.array(A, np.float64)
+    b = np.array(b, np.float64)
+    B, m, _ = A.shape
+    rows = np.arange(B)
+    ok = np.ones(B, bool)
+    with np.errstate(all="ignore"):
+        for i in range(m):
+            k = i + np.argmax(np.abs(A[:, i:, i]), 1)
+            ok &= ~(np.abs(A[rows, k, i]) < _DBL_EPS * 100)
+            swap = rows[k != i]
+            if len(swap):
+                kk = k[swap]
+                A[swap, i], A[swap, kk] = A[swap, kk], A[swap, i].copy()
+                b[swap, i], b[swap, kk] = b[swap, kk], b[swap, i].copy()
+            alpha = A[:, i + 1:, i] * (-1.0 / A[:, i, i])[:, None]
+            A[:, i + 1:, i + 1:] += alpha[..., None] * A[:, i, None, i + 1:]
+            b[:, i + 1:] += alpha[..., None] * b[:, i, None]
+        for i in range(m - 1, -1, -1):
+            s = b[:, i]
+            for k in range(i + 1, m):
+                s = s - A[:, i, k, None] * b[:, k]
+            b[:, i] = s / A[:, i, i, None]
+    return np.where(ok[:, None, None], b, 0.0)
+
+
+def _sum_in_fours(v) -> np.ndarray:
+    """cv::sum of doubles over the last axis: blocks of four, each summed
+    left to right, added in order from 0."""
+    n = v.shape[-1]
+    acc = np.zeros(v.shape[:-1])
+    for i in range(0, n - n % 4, 4):
+        acc = acc + (((v[..., i] + v[..., i + 1]) + v[..., i + 2])
+                     + v[..., i + 3])
+    for i in range(n - n % 4, n):
+        acc = acc + v[..., i]
+    return acc
+
+
+def _poly_start(c, n):
+    """cv::solvePoly's starting roots for real coefficients c [B, n + 1]
+    (c_k multiplies z^k): n points R (cos, sin)^k on a circle, the radius
+    R the mean of the bounds 2 (|c_k| / |c_n|)^(1 / (n - k)) and
+    0.5 (|c_0| / |c_k|)^(1 / k) over the coefficients above DBL_EPSILON,
+    the largest upper and the smallest lower bound left out and the sum
+    divided by twice their count less two; 1 where there are too few."""
+    B = len(c)
+    a = np.sqrt(c * c)
+    upper, lower = np.zeros((B, n)), np.zeros((B, n))
+    count = np.zeros(B, np.int64)
+    for b in range(B):
+        if a[b, 0] > _DBL_EPS:
+            upper[b, 0] = math.pow(a[b, 0] / a[b, n], 1.0 / n) * 2.0
+            count[b] = 1
+        for k in range(1, n + 1):
+            if a[b, k] > _DBL_EPS:
+                if k != n:
+                    upper[b, k] = math.pow(a[b, k] / a[b, n],
+                                           1.0 / (n - k)) * 2.0
+                lower[b, k - 1] = math.pow(a[b, 0] / a[b, k], 1.0 / k) * 0.5
+                count[b] += 1
+    rows = np.arange(B)
+    upper[rows, np.argmax(upper, 1)] = 0.0
+    lower[rows, np.argmin(lower, 1)] = 0.0
+    with np.errstate(all="ignore"):
+        radius = np.where(count > 2, (_sum_in_fours(upper)
+                                      + _sum_in_fours(lower))
+                          / (2.0 * count - 2.0), 1.0)
+    theta = 6.283185307179586 / n
+    sin, cos = math.sin(theta), math.cos(theta)
+    re, im = [radius], [np.zeros(B)]
+    for _ in range(n - 1):
+        re, im = re + [re[-1] * cos - im[-1] * sin], \
+            im + [re[-1] * sin + im[-1] * cos]
+    return re, im
+
+
+def solve_poly(c, max_iters: int = POLY_ITERS):
+    """cv::solvePoly(c, roots, max_iters) of OpenCV 5.0 for real
+    coefficients c [B, n0 + 1] (c_k multiplies z^k), batched: the degree
+    cut while the leading |c_n| is at most DBL_EPSILON, the start of
+    _poly_start, then Weierstrass (Durand-Kerner) sweeps in place (each
+    root updated by P(p) / (c_n prod_j (p - r_j)) over the others' current
+    values, Horner and the product in OpenCV's complex arithmetic) until
+    the largest step is 0 or after max_iters; imaginary parts under 1e-100
+    set to 0; roots past the cut degree 0. -> (re [B, n0], im [B, n0]).
+    OpenCV skips the factor of a root that coincides exactly with the one
+    being updated and then corrects the step; from its distinct start,
+    within its sweeps, roots meet only in the limit, so that route is not
+    reproduced."""
+    c = np.asarray(c, np.float64)
+    B, n0 = c.shape[0], c.shape[1] - 1
+    re, im = np.zeros((B, n0)), np.zeros((B, n0))
+    deg = np.full(B, n0)
+    for b in range(B):
+        while deg[b] > 1 and not abs(c[b, deg[b]]) > _DBL_EPS:
+            deg[b] -= 1
+    for n in np.unique(deg):
+        rows = np.nonzero(deg == n)[0]
+        re[rows, :n], im[rows, :n] = _weierstrass(c[rows, :n + 1], int(n),
+                                                  max_iters)
+    return re, np.where(np.abs(im) < 1e-100, 0.0, im)
+
+
+def _weierstrass(c, n, max_iters):
+    """solve_poly's sweeps on a batch of one degree n. A root's own value
+    changes only at its update, so every root's P(p) is taken at the
+    sweep's start in one batch; the denominators follow the roots as they
+    move."""
+    B = len(c)
+    rr, ri = _poly_start(c, n)
+    lead, zero = c[:, n].copy(), np.zeros(B)
+    coef = [c[:, k].copy() for k in range(n + 1)]
+    out_r, out_i = np.zeros((B, n)), np.zeros((B, n))
+    live = np.ones(B, bool)
+    with np.errstate(all="ignore"):
+        for _ in range(max_iters if max_iters > 0 else 1000):
+            R, I = np.array(rr), np.array(ri)
+            nr, ni = np.broadcast_to(lead, (n, B)), zero
+            for j in range(n):
+                tr = nr * R - ni * I
+                ti = ni * R + nr * I
+                nr, ni = coef[n - j - 1] + tr, ti + 0.0
+            step = zero
+            for i in range(n):
+                pr, pi = rr[i], ri[i]
+                dr = pr - np.array(rr)
+                di = pi - np.array(ri)
+                er, ei = lead, zero
+                for j in range(n):
+                    if j != i:
+                        er, ei = er * dr[j] - ei * di[j], di[j] * er + dr[j] * ei
+                t = 1.0 / (er * er + ei * ei)
+                qi = (er * ni[i] - nr[i] * ei) * t
+                qr = (er * nr[i] + ei * ni[i]) * t
+                rr[i], ri[i] = pr - qr, pi - qi
+                step = np.fmax(step, np.sqrt(qi * qi + qr * qr))
+            done = live & ~(step > 0)
+            if done.any():
+                out_r[done] = np.array(rr).T[done]
+                out_i[done] = np.array(ri).T[done]
+                live &= ~done
+                if not live.any():
+                    break
+    out_r[live] = np.array(rr).T[live]
+    out_i[live] = np.array(ri).T[live]
+    return out_r, out_i
+
+
+def _norm9(v) -> np.ndarray:
+    """cv::norm(v, NORM_L2) of short double vectors (last axis under 16):
+    the squares added in order, whole blocks of four plainly and the rest
+    fused (fma), then the root."""
+    n = v.shape[-1]
+    s = np.zeros(v.shape[:-1])
+    for k in range(n):
+        s = (s + v[..., k] * v[..., k] if k < n - n % 4
+             else fma(v[..., k], v[..., k], s))
+    return np.sqrt(s)
+
+
+def _essential_polys(x1, x2):
+    """runKernel up to its polynomial, for normalized points x1 (first
+    view), x2 (second) [B, 5, 2]: the null-space vectors EE [B, 4, 9] of
+    the 5 x 9 epipolar system (the last four rows of its full SVD's V^T),
+    getCoeffMat's 10 x 20 matrix reduced by the LU solve to the 3 x 13
+    matrix B [B, 3, 13], and the degree-10 polynomial c [B, 11] in z."""
+    B = len(x1)
+    coeffs, poly = _five_point_formulas()
+    X1, Y1, X2, Y2 = x1[..., 0], x1[..., 1], x2[..., 0], x2[..., 1]
+    Q = np.stack([X1 * X2, Y1 * X2, X2, X1 * Y2, Y1 * Y2, Y2, X1, Y1,
+                  np.ones_like(X1)], -1)                         # [B, 5, 9]
+    EE = jacobi_svd(Q, urows=9)[1][:, 5:]
+    A = coeffs(EE.reshape(B, 36)).reshape(B, 10, 20)
+    G = lu_solve(A[:, :, :10], A[:, :, 10:])
+    Bm = np.zeros((B, 3, 13))
+    for i in range(3):
+        r1, r2 = G[:, 2 * i + 4], G[:, 2 * i + 5]
+        row1, row2 = np.zeros((B, 13)), np.zeros((B, 13))
+        row1[:, 1:4], row1[:, 5:8], row1[:, 9:13] = (r1[:, :3], r1[:, 3:6],
+                                                     r1[:, 6:])
+        row2[:, 0:3], row2[:, 4:7], row2[:, 8:12] = (r2[:, :3], r2[:, 3:6],
+                                                     r2[:, 6:])
+        Bm[:, i] = row1 - row2
+    return EE, Bm, poly(Bm.reshape(B, 39))
+
+
+def _em_kernel(x1, x2):
+    """EMEstimatorCallback::runKernel on a batch of five-point samples,
+    normalized points x1 (first view), x2 (second) [B, 5, 2] -> (models
+    [M, 3, 3] with x2^T E x1 = 0, the sample each came from [M]), each
+    sample's models in root order."""
+    EE, Bm, c = _essential_polys(x1, x2)
+    re, im = solve_poly(c)
+    s, k = np.nonzero(~(np.abs(im) > _ROOT_IMAG))      # (sample, root) order
+    z1 = re[s, k]
+    z2 = z1 * z1
+    z3 = z2 * z1
+    z4 = z1 * z3
+    br = Bm[s]                                                   # [R, 3, 13]
+    bz = np.stack([
+        ((br[..., 0] * z3[:, None] + br[..., 1] * z2[:, None])
+         + br[..., 2] * z1[:, None]) + br[..., 3],
+        ((br[..., 4] * z3[:, None] + br[..., 5] * z2[:, None])
+         + br[..., 6] * z1[:, None]) + br[..., 7],
+        (((br[..., 8] * z4[:, None] + br[..., 9] * z3[:, None])
+          + br[..., 10] * z2[:, None]) + br[..., 11] * z1[:, None])
+        + br[..., 12]], -1)                                      # [R, 3, 3]
+    if not len(bz):
+        return np.zeros((0, 3, 3)), np.zeros(0, np.int64)
+    xy1 = jacobi_svd(np.swapaxes(bz, 1, 2), False)[2][:, 2]      # solveZ
+    keep = ~(np.abs(xy1[:, 2]) < 1e-10)
+    s, z1, xy1 = s[keep], z1[keep], xy1[keep]
+    with np.errstate(all="ignore"):
+        x, y = xy1[:, 0] / xy1[:, 2], xy1[:, 1] / xy1[:, 2]
+        e = EE[s]
+        E = fma(e[:, 0], x[:, None], fma(e[:, 1], y[:, None], 0.0))
+        E = fma(e[:, 2], z1[:, None], E) + e[:, 3]
+        E = E * (1.0 / _norm9(E))[:, None]
+    return E.reshape(-1, 3, 3), s
+
+
+def _sampson_errors(E, x1, x2) -> np.ndarray:
+    """EMEstimatorCallback::computeError for models E [M, 3, 3] on
+    normalized points x1, x2 [N, 2]: the squared Sampson distance in
+    double, each product sum from 0 in OpenCV's order, stored as float32
+    -> [M, N]."""
+    e = E.reshape(-1, 9, 1)
+    p0, p1, q0, q1 = x1[:, 0], x1[:, 1], x2[:, 0], x2[:, 1]
+    ex0 = ((0.0 + e[:, 0] * p0) + e[:, 1] * p1) + e[:, 2]
+    ex1 = ((0.0 + e[:, 3] * p0) + e[:, 4] * p1) + e[:, 5]
+    ex2 = ((0.0 + e[:, 6] * p0) + e[:, 7] * p1) + e[:, 8]
+    et0 = ((0.0 + e[:, 0] * q0) + e[:, 3] * q1) + e[:, 6]
+    et1 = ((0.0 + e[:, 1] * q0) + e[:, 4] * q1) + e[:, 7]
+    d = ((0.0 + q0 * ex0) + q1 * ex1) + ex2
+    with np.errstate(all="ignore"):
+        return (d * d / (((ex0 * ex0 + ex1 * ex1) + et0 * et0)
+                         + et1 * et1)).astype(np.float32)
+
+
+def find_essential_mat(p0, p1, K, prob: float = 0.999,
+                       threshold: float = 1.0, max_iters: int = 1000):
+    """The essential matrix of correspondences p0, p1 [N, 2] (pixels of
+    cameras with intrinsics K), as cv2.findEssentialMat(p0, p1, K,
+    cv2.RANSAC, prob, threshold, max_iters) computes it in OpenCV 5.0, bit
+    for bit: the points normalized (_normalized), the threshold divided
+    by (fx + fy) / 2, and OpenCV's RANSAC (ransac) over _em_kernel with
+    _sampson_errors. Returns (E [3, 3] with x1^T E x0 = 0 for normalized
+    homogeneous points, mask [N, 1] uint8 of 0 and 1); on exactly five
+    correspondences every root's E stacked [3k, 3] and a mask of ones, as
+    OpenCV returns them; (None, None) under five or where RANSAC finds no
+    model."""
+    K = np.asarray(K, np.float64)
+    x1, x2 = _normalized(p0, K), _normalized(p1, K)
+
+    def kernel(subsets):
+        return _em_kernel(x1[subsets], x2[subsets])
+
+    model, mask = ransac(len(x1), ESSENTIAL_SAMPLE, kernel,
+                         lambda E: _sampson_errors(E, x1, x2),
+                         threshold / ((K[0, 0] + K[1, 1]) / 2), prob,
+                         max_iters, ESSENTIAL_BATCHES)
+    if model is None:
+        return None, None
+    return model.reshape(-1, 3), mask.astype(np.uint8).reshape(-1, 1)
+
+
+def _matmul3(A, B) -> np.ndarray:
+    """A 3x3 product as cv::gemm sums it: each entry over k in order."""
+    return ((A[:, 0, None] * B[0] + A[:, 1, None] * B[1])
+            + A[:, 2, None] * B[2])
+
+
+def _det3(M) -> float:
+    """cv::determinant of a 3x3 matrix (its cofactor formula)."""
+    return (M[0, 0] * (M[1, 1] * M[2, 2] - M[1, 2] * M[2, 1])
+            - M[0, 1] * (M[1, 0] * M[2, 2] - M[1, 2] * M[2, 0])
+            + M[0, 2] * (M[1, 0] * M[2, 1] - M[1, 1] * M[2, 0]))
+
+
+def decompose_essential_mat(E):
+    """cv2.decomposeEssentialMat, bit for bit: E's SVD through _svd3, U
+    and V^T negated where their determinant is negative, R1 = U W V^T,
+    R2 = U W^T V^T and t = U's last column, each product in cv::gemm's
+    order. -> (R1, R2, t [3])."""
+    U, _, Vt = _svd3(np.asarray(E, np.float64).reshape(3, 3))
+    if _det3(U) < 0:
+        U = U * -1.0
+    if _det3(Vt) < 0:
+        Vt = Vt * -1.0
+    return (_matmul3(_matmul3(U, _W90), Vt),
+            _matmul3(_matmul3(U, _W90.T), Vt), U[:, 2] * 1.0)
+
+
 def recover_pose(E, p0, p1, K, mask=None, distance_thresh: float = 50.0):
-    """Relative pose from an essential matrix, as cv2.recoverPose computes
-    it: the four decompositions of E (decomposeEssentialMat through
-    _svd3), each held to the cheirality test (points triangulated in front
-    of both cameras and nearer than `distance_thresh`) over the masked
-    correspondences, the first with the most points winning. Returns
-    (count, R [3, 3], t [3, 1], mask [N, 1] uint8) with X1 = R X0 + t; the
-    mask holds the input mask's value at each point that passed (255
-    without an input mask), as OpenCV's does."""
+    """Relative pose from an essential matrix, as cv2.recoverPose(E, p0,
+    p1, K, mask=mask) computes it, bit for bit: the four decompositions of
+    E (decompose_essential_mat) in OpenCV's order [R1|t], [R2|t], [R1|-t],
+    [R2|-t], each held to the cheirality test on the normalized points
+    (triangulate_points from [I|0]; Q2 Q3 > 0, the dehomogenized depth
+    under distance_thresh, and in the second camera, P Q summed as cv::gemm
+    sums it, in front and under distance_thresh) and to the input mask;
+    the first decomposition with the most points wins. Returns (count,
+    R [3, 3], t [3, 1], mask [N, 1] uint8) with X1 = R X0 + t; the mask
+    holds the input mask's value at each point that passed (255 without
+    an input mask), as OpenCV's does."""
     K = np.asarray(K, np.float64)
     x0, x1 = _normalized(p0, K), _normalized(p1, K)
     m_in = (np.full(len(x0), 255, np.uint8) if mask is None
             else np.asarray(mask).reshape(-1).astype(np.uint8))
-    U, _, Vt = _svd3(E)
-    if np.linalg.det(U) < 0:
-        U = -U
-    if np.linalg.det(Vt) < 0:
-        Vt = -Vt
-    R1, R2, t = U @ _W90 @ Vt, U @ _W90.T @ Vt, U[:, 2]
+    R1, R2, t = decompose_essential_mat(E)
     P0 = np.eye(4)[:3]
     best = None
     for R, tt in ((R1, t), (R2, t), (R1, -t), (R2, -t)):
@@ -887,10 +1005,11 @@ def recover_pose(E, p0, p1, K, mask=None, distance_thresh: float = 50.0):
         Q = triangulate_points(P0, P1, x0.T, x1.T)
         ok = Q[2] * Q[3] > 0
         with np.errstate(divide="ignore", invalid="ignore"):
-            X = Q[:3] / Q[3]
-        ok &= X[2] < distance_thresh
-        X1 = R @ X + tt[:, None]
-        ok &= (X1[2] > 0) & (X1[2] < distance_thresh) & (m_in > 0)
+            Q = Q / Q[3]
+        ok &= Q[2] < distance_thresh
+        z = ((P1[2, 0] * Q[0] + P1[2, 1] * Q[1]) + P1[2, 2] * Q[2]) \
+            + P1[2, 3] * Q[3]
+        ok &= (z > 0) & (z < distance_thresh) & (m_in > 0)
         good = int(ok.sum())
         if best is None or good > best[0]:
             best = (good, R, tt.reshape(3, 1), ok)
@@ -945,28 +1064,31 @@ def _ransac_subsets(count, k, n) -> np.ndarray:
 
 
 def ransac(count, model_points, kernel, errors, threshold, confidence,
-           max_iters, batch=16):
+           max_iters, batches=(16, 64)):
     """cv::RANSACPointSetRegistrator::run over `count` correspondences,
     generic over its kernel: kernel(subsets [b, k]) -> (models [b', ...],
     subset [b'] each model came from, in order); errors(models) -> float32
-    squared errors [b', count], inliers where at most float32(threshold^2).
-    A model wins with strictly more inliers than the best so far (and than
+    squared errors [b', count], inliers where at most
+    float32(threshold * threshold) (the threshold in double). A model wins
+    with strictly more inliers than the best so far (and than
     model_points - 1), the iterations cut by ransac_update_num_iters.
     Subsets do not depend on the models, so the kernel runs on batches of
-    them (batch, then up to 64 a call) and the models are visited in
-    OpenCV's order. -> (best model, inlier mask [count]) or (None, None)."""
+    them (batches[0], then up to batches[1] a call) and the models are
+    visited in OpenCV's order. Exactly model_points correspondences go to
+    the kernel once and every model it returns is returned, stacked.
+    -> (best model, inlier mask [count]) or (None, None)."""
     if count < model_points:
         return None, None
-    t = np.float32(float(np.float32(threshold)) ** 2)
+    t = np.float32(threshold * threshold)
     if count == model_points:
         models, _ = kernel(np.arange(count)[None])
         if len(models) == 0:
             return None, None
-        return models[0], np.ones(count, bool)
+        return models, np.ones(count, bool)
     niters = max(max_iters, 1)
     subsets = _ransac_subsets(count, model_points, niters)
     best, best_mask, best_good = None, None, 0
-    it = 0
+    it, batch = 0, batches[0]
     while it < niters:
         b = min(batch, niters - it)
         models, owner = kernel(subsets[it:it + b])
@@ -984,7 +1106,7 @@ def ransac(count, model_points, kernel, errors, threshold, confidence,
                     confidence, (count - best_good) / count, model_points,
                     niters)
         it += b
-        batch = 64
+        batch = batches[1]
     return best, best_mask
 
 
@@ -1304,8 +1426,8 @@ def solve_pnp_ransac(obj, img, K, rvec0=None, tvec0=None,
     def errors(models):
         return _pnp_errors(obj64, img32, models[:, :3], models[:, 3:], K)
 
-    model, mask = ransac(n, PNP_SAMPLE, kernel, errors, reproj_err,
-                         PNP_CONFIDENCE, iters)
+    model, mask = ransac(n, PNP_SAMPLE, kernel, errors,
+                         float(np.float32(reproj_err)), PNP_CONFIDENCE, iters)
     if model is None:
         return fail
     start = (r0, t0) if guess else (model[:3], model[3:])

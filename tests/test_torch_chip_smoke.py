@@ -834,6 +834,64 @@ def test_pnp_fixture_constants_are_opencvs():
     cs.pnp_fixture(vision, "cpu")
 
 
+def test_essential_fixture_constants_are_opencvs():
+    """chip_smoke.py holds the card host's find_essential_mat, recover_pose
+    and triangulate_points to ESSENTIAL_SHA256 and ESSENTIAL_POSES (no
+    OpenCV on the card's machine): cv2.findEssentialMat(RANSAC),
+    cv2.recoverPose and cv2.triangulatePoints on
+    essential_fixture_problems give them, and so does the port on the
+    CPU; and the fixture's check passes here."""
+    cv2 = pytest.importorskip("cv2")
+    from photo_slam_tpu_torch.tracking import vision
+
+    problems = cs.essential_fixture_problems(vision)
+    assert [len(p[0]) for p in problems] == [f[0] for f in
+                                             cs.ESSENTIAL_FIXTURE]
+    want = []
+    for p0, p1, K in problems:
+        E, mask = cv2.findEssentialMat(p0, p1, K, cv2.RANSAC, 0.999, 1.0)
+        if E.shape != (3, 3):
+            want.append((E, mask, None))
+            continue
+        n, R, t, pose_mask = cv2.recoverPose(E, p0, p1, K, mask=mask.copy())
+        m = pose_mask.ravel() > 0
+        pts = cv2.triangulatePoints(K @ np.eye(4)[:3],
+                                    K @ np.concatenate([R, t], 1),
+                                    p0[m].T, p1[m].T)
+        want.append((E, mask, (n, R, t, pose_mask, pts)))
+    assert cs.essential_digest(want) == cs.ESSENTIAL_SHA256
+    assert [r[2] is None for r in want] == [False, False, False, True]
+    got = [cs.solve_two_view(vision, p) for p in problems]
+    assert cs.essential_digest(got) == cs.ESSENTIAL_SHA256
+    poses = [r for r in zip(want, got) if r[0][2] is not None]
+    assert len(poses) == len(cs.ESSENTIAL_POSES)
+    for (a, b), pose in zip(poses, cs.ESSENTIAL_POSES):
+        for r in (a, b):
+            np.testing.assert_allclose(
+                np.concatenate([r[2][1].ravel(), r[2][2].ravel()]), pose,
+                rtol=0, atol=cs.ESSENTIAL_POSE_TOL)
+    cs.essential_fixture(vision, "cpu")
+
+
+def test_essential_digest():
+    """essential_digest sees E, both masks, the count and the points, and
+    takes OpenCV's None for no points as empty."""
+    rng = np.random.default_rng(0)
+    pose = (3, np.eye(3), np.zeros((3, 1)), np.ones((4, 1), np.uint8),
+            rng.normal(size=(4, 3)))
+    base = [(rng.normal(size=(3, 3)), np.ones((4, 1), np.uint8), pose)]
+    digest = cs.essential_digest(base)
+    E, mask, _ = base[0]
+    for changed in ((np.nextafter(E, 2.0), mask, pose), (E, mask * 0, pose),
+                    (E, mask, (4,) + pose[1:]),
+                    (E, mask, pose[:3] + (pose[3] * 0, pose[4])),
+                    (E, mask, pose[:4] + (pose[4] * 2,)), (E, mask, None)):
+        assert cs.essential_digest([changed]) != digest
+    empty = pose[:4] + (np.zeros((4, 0)),)
+    assert cs.essential_digest([(E, mask, empty)]) == \
+        cs.essential_digest([(E, mask, pose[:4] + (None,))])
+
+
 def test_pnp_digest():
     """pnp_digest sees the ok flags, every inlier and a missing set."""
     ok = (True, None, None, np.arange(5, dtype=np.int32).reshape(-1, 1))

@@ -14,12 +14,12 @@ MappingOperation stream: kinds, keyframes, point counts and payloads,
 compared after the port's save_stream and the JAX load_stream.
 
 With nothing of OpenCV swapped into the port (its own gray, ORB,
-Rodrigues, PnP and SGM, each equal to OpenCV's), the RGB-D, distorted,
-loop-closing and stereo-inertial runs and the OrbVoTracker on
-tests/test_tracking.py's frames equal JAX's the same way, OpenCV's
-features put in the port's order on the JAX side
-(test_parity_with_jax_own_vision, test_vo_tracker_parity_with_jax_own_vision);
-mono keeps cv2_vision, its essential matrix still differs. With the port's
+Rodrigues, PnP, SGM, essential matrix, recoverPose and triangulation, each
+equal to OpenCV's), the RGB-D, monocular, distorted, loop-closing and
+stereo-inertial runs and the OrbVoTracker on tests/test_tracking.py's
+frames equal JAX's the same way, OpenCV's features put in the port's order
+on the JAX side (test_parity_with_jax_own_vision,
+test_vo_tracker_parity_with_jax_own_vision). With the port's
 own vision.py, the scenarios of tests/test_frontend.py,
 tests/test_loop_closing.py and tests/test_multimap.py hold at their
 thresholds. The port's own ORB equals OpenCV's: with it and OpenCV's
@@ -532,6 +532,10 @@ def own_vision_scenario(name, request):
     if name == "rgbd":
         return request.getfixturevalue("rgbd_sequence")[1], kw, drive_all, \
             None, None
+    if name == "mono":
+        kw.update(sensor="mono")
+        return request.getfixturevalue("mono_sequence")[1], kw, drive_all, \
+            None, None
     if name == "distorted_camera":
         dist = np.array([0.012, -0.004, 0.0005, -0.0003, 0.0], np.float32)
         return request.getfixturevalue("rgbd_sequence")[1], kw, drive_all, \
@@ -546,19 +550,20 @@ def own_vision_scenario(name, request):
         dict(Tbc=np.eye(4), freq=200.0, **synth_euroc.IMU_NOISE)
 
 
-@pytest.mark.parametrize("name", ["rgbd", "distorted_camera", "loop_closing",
-                                  "stereo_inertial"])
+@pytest.mark.parametrize("name", ["rgbd", "mono", "distorted_camera",
+                                  "loop_closing", "stereo_inertial"])
 def test_parity_with_jax_own_vision(name, request, tmp_path):
     """The parity scenarios with nothing of OpenCV in the port: its own
-    gray, ORB, Rodrigues, PnP and SGM against the JAX frontend on OpenCV's
-    (its ORB's features put in the port's order, PortOrderOrb). The same
-    trajectories within TRAJ_TOL, keyframes, points, loops and op
-    stream."""
+    gray, ORB, Rodrigues, PnP, SGM, essential matrix, recoverPose and
+    triangulation against the JAX frontend on OpenCV's (its ORB's features
+    put in the port's order, PortOrderOrb). The same trajectories within
+    TRAJ_TOL, keyframes, points, loops and op stream."""
     frames, kw, drive, cam_kw, calib = own_vision_scenario(name, request)
     jops_, tops, jfe, tfe = both_frontends(frames, kw, drive, cam_kw, calib,
                                            jax_orb=PortOrderOrb)
     for fn in ("orb_detect_and_compute", "solve_pnp_ransac", "rodrigues",
-               "rodrigues_inverse"):
+               "rodrigues_inverse", "find_essential_mat", "recover_pose",
+               "triangulate_points"):
         assert getattr(vision, fn).__module__ == vision.__name__, fn
     assert stereo.disparity_u8.__module__ == stereo.__name__
     assert len(tfe.map.keyframes) >= 4

@@ -3,9 +3,11 @@ package: the TUM list reader and association, a `write_tum` tree
 (tools/synth_replica.py) read by both packages' TumDataset, the port's PNG
 decoder on TUM's 640x480 frames with neither cv2 nor PIL, the
 `replica_mono`, `tum_rgbd` and `tum_mono` apps with the GT frontend in
-both packages, `replica_mono --frontend slam` against the JAX frontend
-with OpenCV's functions swapped into the port's vision (cv2_vision), and
-what the apps refuse.
+both packages, `replica_mono --frontend slam` against the JAX frontend,
+with OpenCV's functions swapped into the port's vision (cv2_vision) and
+with the port's own vision (its ORB, essential matrix, recoverPose,
+triangulation and PnP, each equal to OpenCV's) against JAX's ORB features
+put in the port's order (PortOrderOrb), and what the apps refuse.
 
 Tolerances: the lists, associations, images, depth maps, trajectory files
 and cameras.json exact; GT poses within 1e-12 of SynthReplica's own; the
@@ -34,8 +36,8 @@ from photo_slam_tpu_torch.tools.synth_replica import (SynthReplica,
                                                       tum_camera_flags)
 from photo_slam_tpu_torch.utils.math import se3_inverse, se3_matrix
 from test_torch_blend import one_torch_thread  # noqa: F401
-from test_torch_frontend import (assert_same_run, assert_same_stream,
-                                 cv2_vision)  # noqa: F401
+from test_torch_frontend import (PortOrderOrb, assert_same_run,
+                                 assert_same_stream, cv2_vision)  # noqa: F401
 
 cv2 = pytest.importorskip("cv2")
 
@@ -269,14 +271,13 @@ def run_on_thread(fn):
     return out[0]
 
 
-def test_replica_mono_slam_matches_jax(slam_room, cv2_vision, tmp_path,
-                                       monkeypatch):
+def replica_mono_against_jax(slam_room, tmp_path, monkeypatch, jax_orb=None):
     """The port's `online_slam replica_mono --frontend slam
-    --no-async-mapping --device cpu` against the tracker the JAX app builds
-    for it (jonline._make_tracker) on the JAX loader's frames: the same
-    two-view initialization, trajectory within TRAJ_TOL, keyframes, map
-    points and MappingOperation stream; the app's ATE equal to JAX's
-    ate_rmse on JAX's trajectory."""
+    --no-async-mapping --device cpu` and the tracker the JAX app builds for
+    it (jonline._make_tracker, its ORB wrapped by jax_orb) on the JAX
+    loader's frames, held to the same two-view initialization, trajectory
+    within TRAJ_TOL, keyframes, map points and MappingOperation stream, the
+    app's ATE equal to JAX's ate_rmse on JAX's trajectory."""
     trackers, pushed = [], []
     make, push = tonline._make_tracker, mapping_ops.MappingOpQueue.push
 
@@ -299,6 +300,8 @@ def test_replica_mono_slam_matches_jax(slam_room, cv2_vision, tmp_path,
     ds = jdatasets.ReplicaDataset(slam_room, load_depth_maps=False)
     jfe = jonline._make_tracker("slam", ds, JSensorType.MONOCULAR, 10, 800,
                                 async_mapping=False)
+    if jax_orb is not None:
+        jfe.orb = jax_orb(jfe.orb)
     jops = []
     run_on_thread(lambda: jfe.run(ds.frames(), jops.append))
 
@@ -317,21 +320,46 @@ def test_replica_mono_slam_matches_jax(slam_room, cv2_vision, tmp_path,
     assert abs(summary["ate_rmse"] - want) <= TRAJ_TOL
 
 
-def mono_trackers(root):
+def test_replica_mono_slam_matches_jax(slam_room, cv2_vision, tmp_path,
+                                       monkeypatch):
+    """replica_mono --frontend slam with OpenCV's functions swapped into the
+    port's vision, against the JAX app's tracker (replica_mono_against_jax)."""
+    replica_mono_against_jax(slam_room, tmp_path, monkeypatch)
+
+
+def test_replica_mono_own_vision_matches_jax(slam_room, tmp_path,
+                                             monkeypatch):
+    """replica_mono --frontend slam with nothing of OpenCV in the port (its
+    own gray, ORB, essential matrix, recoverPose, triangulation and PnP)
+    against the JAX app's tracker on OpenCV's, its ORB's features put in
+    the port's order (PortOrderOrb): the same run, op stream and ATE
+    (replica_mono_against_jax)."""
+    from photo_slam_tpu_torch.tracking import vision
+
+    for fn in ("rgb_to_gray", "orb_detect_and_compute", "find_essential_mat",
+               "recover_pose", "triangulate_points", "solve_pnp_ransac"):
+        assert getattr(vision, fn).__module__ == vision.__name__, fn
+    replica_mono_against_jax(slam_room, tmp_path, monkeypatch, PortOrderOrb)
+
+
+def mono_trackers(root, async_port=False):
     """The monocular slam tracker each app builds (_make_tracker, local
     mapping on the tracking thread) run on a Replica-layout sequence read
     without its depth by the package's own loader, each package with its
     own vision (JAX's OpenCV, the port's tracking/vision.py), each on a
     fresh thread: {"jax" | "port": (frontend, ground-truth world->camera
-    poses)}."""
+    poses)}; with async_port also "port async", the port's tracker with
+    local mapping on its own thread, as the app runs it by default."""
     out = {}
-    for name, app, datasets, sensor, kw in (
-            ("jax", jonline, jdatasets, JSensorType, {}),
+    runs = [("jax", jonline, jdatasets, JSensorType, {}, False),
             ("port", tonline, tdatasets, tonline.SensorType,
-             {"device": "cpu"})):
+             {"device": "cpu"}, False)]
+    if async_port:
+        runs.append(("port async",) + runs[1][1:5] + (True,))
+    for name, app, datasets, sensor, kw, async_mapping in runs:
         ds = datasets.ReplicaDataset(root, load_depth_maps=False)
         fe = app._make_tracker("slam", ds, sensor.MONOCULAR, 10, 800,
-                               async_mapping=False, **kw)
+                               async_mapping=async_mapping, **kw)
         run_on_thread(lambda: fe.run(ds.frames(), lambda op: None))
         out[name] = fe, [se3_matrix(f.quat_wxyz, f.trans)
                          for f in ds.frames()]
@@ -339,11 +367,11 @@ def mono_trackers(root):
 
 
 def test_replica_mono_own_vision_tracks_the_pan(slam_room):
-    """The port's own vision (ORB in torch, the five-point essential
-    matrix in RANSAC on OpenCV's scoring, its PnP) initializes on the pan
-    and tracks every later frame, as JAX's OpenCV does on the same frames.
-    Their ATEs are not compared here: both miss 5 cm on the full pan
-    (ROADMAP Queue 3; `python tests/test_torch_mono_tum.py` prints them)."""
+    """The port's own vision (ORB in torch, OpenCV's five-point RANSAC, its
+    PnP) initializes on the pan and tracks every later frame, as JAX's
+    OpenCV does on the same frames (each on its own ORB order). Their ATEs
+    are not compared here: both miss 5 cm on the full pan (ROADMAP Queue
+    3; `python tests/test_torch_mono_tum.py` prints them)."""
     for name, (fe, gt) in mono_trackers(slam_room).items():
         assert len(fe.trajectory) == len(gt) == SLAM_FRAMES, name
         assert len(fe.map.keyframes) >= 3 and fe.lost_frames == 0, name
@@ -390,7 +418,8 @@ def test_tum_camera_flags_round_trip(room):
 
 
 if __name__ == "__main__":
-    # The pan's monocular ATE in both packages on the CPU:
+    # The pan's monocular ATE in both packages on the CPU, and the port's
+    # with local mapping on its own thread (as chip_smoke's app runs it):
     #   python tests/test_torch_mono_tum.py [frames] [width] [height]
     # (default: chip_smoke's 120 frames at 600x340, half its width). The
     # frames go through the PNG writer, as on the card's machine.
@@ -409,7 +438,7 @@ if __name__ == "__main__":
         mp.setattr(images, "Image", None)
         root = seq.write(Path(tmp) / "room")
         mp.undo()
-        for name, (fe, gt) in mono_trackers(root).items():
+        for name, (fe, gt) in mono_trackers(root, True).items():
             est, ref = (np.stack([se3_inverse(t)[:3, 3] for t in traj])
                         for traj in (fe.trajectory, gt))
             print(f"{name}: {num} frames at {width}x{height}, keyframes "
