@@ -8,14 +8,17 @@ the SE3 pose graph, the roles of Optimizer::LocalBundleAdjustment and
 OptimizeEssentialGraph, reference: ORB-SLAM3/src/Optimizer.cc:1116,
 :1762), compiled unchanged. The port's own host sources sit in
 `photo_slam_tpu_torch/csrc_host/` (`jpeg.cpp`, the JPEG decoder of
-io/jpeg.py). Each is compiled with `g++ -O3 -shared -fPIC -std=c++17`
-into `<checkout>/build/torch_native/`, one library per source named by a
-digest of the source and the flags, at first use; the two optimizers'
-compilers start together. Nothing is written next to the sources.
+io/jpeg.py; `retain_best.cpp`, OpenCV's KeyPointsFilter::retainBest for
+the ORB of tracking/vision.py). Each is compiled with `g++ -O3 -shared
+-fPIC -std=c++17` into `<checkout>/build/torch_native/`, one library per
+source named by a digest of the source and the flags, at first use; the
+two optimizers' compilers start together. Nothing is written next to the
+sources.
 
 A failed build raises with g++'s output: there is no silent fallback. The
 numpy versions (`pose_optimize_numpy`, `local_ba_numpy`,
-`pose_graph_numpy`) are the plain twins, reached only by name.
+`pose_graph_numpy`) and vision.retain_best_plain are the plain twins,
+reached only by name.
 
 `calls` counts the calls into each native function, so a caller can show
 that a run went through the built libraries (`libraries()` names them).
@@ -40,14 +43,17 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_native"
 GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 SOURCES = {"pose_ba": SRC_DIR / "pose_ba.cpp",
            "slam_opt": SRC_DIR / "slam_opt.cpp",
-           "jpeg": HOST_DIR / "jpeg.cpp"}
+           "jpeg": HOST_DIR / "jpeg.cpp",
+           "retain_best": HOST_DIR / "retain_best.cpp"}
 OPTIMIZERS = ("pose_ba", "slam_opt")
 
-calls = {"pose_optimize": 0, "local_ba": 0, "pose_graph_optimize": 0}
+calls = {"pose_optimize": 0, "local_ba": 0, "pose_graph_optimize": 0,
+         "retain_best": 0}
 _build_lock = threading.Lock()
 _loaded: dict[str, Path] = {}
 
 _f64 = np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")
+_f32 = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
 _i32 = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
 _D, _I = ctypes.c_double, ctypes.c_int
 
@@ -101,6 +107,9 @@ def _lib(name: str) -> ctypes.CDLL:
                                   ctypes.POINTER(_I), ctypes.c_char_p, _I]
         lib.jpeg_decode.argtypes = [ctypes.c_char_p, ctypes.c_long, _I,
                                     ctypes.c_void_p, ctypes.c_char_p, _I]
+    elif name == "retain_best":
+        lib.retain_best.restype = _I
+        lib.retain_best.argtypes = [_f32, _I, _I, _i32]
     elif name == "pose_ba":
         lib.pose_optimize.restype = _I
         lib.pose_optimize.argtypes = [_I, _f64, _f64, _D, _D, _D, _D, _D, _D,

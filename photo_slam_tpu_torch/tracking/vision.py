@@ -36,19 +36,22 @@ find_essential_mat and solve_pnp_ransac draw their samples from OpenCV's
 cv::RNG(-1), as OpenCV's registrator does, so a run repeats exactly.
 
 ORB returns what OpenCV's does: the same keypoints (level and float32
-point), float32 responses and angles, and descriptors bit for bit; only
-the order within a level differs (raster order here, std::nth_element's
-inside OpenCV). It computes in integers wherever OpenCV does (the
-pyramid's fixed-point bilinear, FAST, the Harris sums, the intensity
-centroid) and elsewhere follows OpenCV's float32 arithmetic op by op: the
-float scale factor 1.2f and its powers, the Harris response, fastAtan2's
-polynomial, the level blur's separable float filter with the fused
-multiply-adds of OpenCV's vector build (emulated exactly in float64), and
-the steering of the 256 learned tests. Each of those is a chain of single
-elementwise torch ops, each rounded once as IEEE prescribes, with no op
-that could contract a multiply and an add (nor a convolution, whose
-summation order a library picks), so the card and the CPU agree bit for
-bit.
+point), float32 responses and angles, and descriptors bit for bit, in
+OpenCV's order, which matching and RANSAC's samples follow downstream.
+That order is what KeyPointsFilter::retainBest's std::nth_element and
+std::partition leave, so the port takes it from the same libstdc++
+algorithms (retain_best, a host C++ shim built by native.py; its Python
+twin retain_best_plain is for tests and chip_smoke.py). It computes in
+integers wherever OpenCV does (the pyramid's fixed-point bilinear, FAST,
+the Harris sums, the intensity centroid) and elsewhere follows OpenCV's
+float32 arithmetic op by op: the float scale factor 1.2f and its powers,
+the Harris response, fastAtan2's polynomial, the level blur's separable
+float filter with the fused multiply-adds of OpenCV's vector build
+(emulated exactly in float64), and the steering of the 256 learned tests.
+Each of those is a chain of single elementwise torch ops, each rounded
+once as IEEE prescribes, with no op that could contract a multiply and an
+add (nor a convolution, whose summation order a library picks), so the
+card and the CPU agree bit for bit.
 """
 from __future__ import annotations
 
@@ -58,6 +61,8 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from photo_slam_tpu_torch import native
 
 
 # ---------------------------------------------------------------------------
@@ -1878,14 +1883,144 @@ def fast_scores(img: torch.Tensor, threshold: int = FAST_THRESHOLD):
     return torch.where(keep, score, 0)
 
 
-def _retain_best(score: torch.Tensor, n: int) -> torch.Tensor:
-    """Mask of the entries at or above the n-th largest score (ties kept,
-    as KeyPointsFilter::retainBest)."""
-    if len(score) <= n:
-        return torch.ones_like(score, dtype=torch.bool)
-    if n == 0:
-        return torch.zeros_like(score, dtype=torch.bool)
-    return score >= torch.topk(score, n).values[-1]
+def retain_best(response, k: int) -> np.ndarray:
+    """OpenCV's KeyPointsFilter::retainBest on float32 responses in input
+    order -> the int64 indices it keeps, in the order it leaves them: the
+    k best (ties with the k-th kept) as std::nth_element and
+    std::partition arrange them. Computed by csrc_host/retain_best.cpp,
+    which calls libstdc++'s own algorithms, built by native.py."""
+    resp = np.ascontiguousarray(response, np.float32).reshape(-1)
+    out = np.empty(len(resp), np.int32)
+    lib = native._lib("retain_best")
+    native.calls["retain_best"] += 1
+    count = lib.retain_best(resp, len(resp), int(k), out)
+    return out[:count].astype(np.int64)
+
+
+def retain_best_plain(response, k: int) -> np.ndarray:
+    """retain_best in Python, the plain twin that tests hold the shim
+    against: libstdc++'s std::nth_element at k - 1 by response greater
+    (nth_element_plain), then std::__partition (bidirectional) of the rest
+    by response at least the k-th's, transcribed step for step."""
+    r = np.asarray(response, np.float32).reshape(-1).tolist()
+    n = len(r)
+    if k < 0 or n <= k:
+        return np.arange(n, dtype=np.int64)
+    if k == 0:
+        return np.zeros(0, np.int64)
+    a = list(range(n))      # the records, by input index
+    nth_element_plain(a, k - 1, lambda x, y: r[x] > r[y])
+    v = r[a[k - 1]]
+    first, last = k, n
+    while True:
+        while first != last and r[a[first]] >= v:
+            first += 1
+        if first == last:
+            break
+        last -= 1
+        while first != last and not r[a[last]] >= v:
+            last -= 1
+        if first == last:
+            break
+        a[first], a[last] = a[last], a[first]
+        first += 1
+    return np.array(a[:first], np.int64)
+
+
+def nth_element_plain(a: list, nth: int, comp) -> bool:
+    """libstdc++'s std::nth_element(a, a + nth, a + len(a), comp) on the
+    list `a` in place, transcribed step for step: std::__introselect with
+    the depth limit 2 lg n, the median of three moved to the front, the
+    unguarded partition, std::__heap_select when the depth runs out and
+    std::__insertion_sort once 3 or fewer are left. Returns whether the
+    depth ran out."""
+
+    def swap(i, j):
+        a[i], a[j] = a[j], a[i]
+
+    def adjust_heap(first, hole, length, value):
+        top = second = hole
+        while second < (length - 1) // 2:
+            second = 2 * (second + 1)
+            if comp(a[first + second], a[first + second - 1]):
+                second -= 1
+            a[first + hole] = a[first + second]
+            hole = second
+        if length % 2 == 0 and second == (length - 2) // 2:
+            second = 2 * (second + 1)
+            a[first + hole] = a[first + second - 1]
+            hole = second - 1
+        parent = (hole - 1) // 2           # std::__push_heap
+        while hole > top and comp(a[first + parent], value):
+            a[first + hole] = a[first + parent]
+            hole = parent
+            parent = (hole - 1) // 2
+        a[first + hole] = value
+
+    def median_to_first(result, x, y, z):
+        if comp(a[x], a[y]):
+            if comp(a[y], a[z]):
+                swap(result, y)
+            elif comp(a[x], a[z]):
+                swap(result, z)
+            else:
+                swap(result, x)
+        elif comp(a[x], a[z]):
+            swap(result, x)
+        elif comp(a[y], a[z]):
+            swap(result, z)
+        else:
+            swap(result, y)
+
+    def unguarded_partition(first, last, pivot):
+        while True:
+            while comp(a[first], a[pivot]):
+                first += 1
+            last -= 1
+            while comp(a[pivot], a[last]):
+                last -= 1
+            if not first < last:
+                return first
+            swap(first, last)
+            first += 1
+
+    first, last = 0, len(a)
+    if first == last or nth == last:
+        return False
+    depth = 2 * (last.bit_length() - 1)
+    while last - first > 3:
+        if depth == 0:
+            middle = nth + 1               # std::__heap_select
+            length = middle - first
+            for parent in range((length - 2) // 2, -1, -1):
+                adjust_heap(first, parent, length, a[first + parent])
+            for i in range(middle, last):
+                if comp(a[i], a[first]):
+                    value = a[i]
+                    a[i] = a[first]
+                    adjust_heap(first, 0, length, value)
+            swap(first, nth)
+            return True
+        depth -= 1
+        median_to_first(first, first + 1, first + (last - first) // 2,
+                        last - 1)
+        cut = unguarded_partition(first + 1, last, first)
+        if cut <= nth:
+            first = cut
+        else:
+            last = cut
+    for i in range(first + 1, last):       # std::__insertion_sort
+        val = a[i]
+        if comp(val, a[first]):
+            a[first + 1:i + 1] = a[first:i]
+            a[first] = val
+            continue
+        j = i
+        while comp(val, a[j - 1]):
+            a[j] = a[j - 1]
+            j -= 1
+        a[j] = val
+    return False
 
 
 def _window_sums(img, ys, xs, dys, dxs):
@@ -2079,8 +2214,10 @@ def orb_detect_and_compute(gray, nfeatures: int, device) -> OrbFeatures:
     orientation by fastAtan2 of the intensity centroid over the circular
     patch of radius 15; OpenCV's 256 learned tests, steered, on the level
     blurred by orb_level_blur. Points come back in level-0 pixels, level by
-    level, each level in raster order; OpenCV's own order comes from
-    std::nth_element inside retainBest and carries no meaning."""
+    level, each level in OpenCV's order: FAST's raster order as
+    retain_best leaves it after the cut to 2n by score and then after the
+    cut to n by response. Matching follows that order, and so do the
+    samples of the RANSAC loops downstream."""
     device = torch.device(device)
     img = torch.as_tensor(np.asarray(gray, np.uint8)).to(device).to(
         torch.int32)
@@ -2099,10 +2236,15 @@ def orb_detect_and_compute(gray, nfeatures: int, device) -> OrbFeatures:
         ys, xs = torch.nonzero(inner, as_tuple=True)
         if len(ys) == 0:
             continue
-        keep = _retain_best(inner[ys, xs], 2 * n)
+        # retainBest's order, as OpenCV leaves it: the FAST corners in
+        # raster order (torch.nonzero's) cut to 2n by score, the Harris
+        # responses taken in that order and cut to n.
+        keep = retain_best(inner[ys, xs].cpu().numpy(), 2 * n)
+        keep = torch.from_numpy(keep).to(device)
         ys, xs = ys[keep], xs[keep]
         resp = harris_response(*harris_sums(im, ys, xs))
-        keep = _retain_best(resp, n)
+        keep = torch.from_numpy(retain_best(resp.cpu().numpy(), n))
+        keep = keep.to(device)
         ys, xs, resp = ys[keep], xs[keep], resp[keep]
         # Orientation: the intensity centroid over the circular patch.
         patch = _window_sums(im, ys, xs, dv, du)

@@ -788,22 +788,54 @@ def test_keypoint_agreement():
 
 
 def test_orb_digest():
-    """orb_digest does not depend on the rows' order and sees one bit of
-    any field."""
+    """orb_digest hashes the rows in the order returned: two rows swapped
+    change it, as one bit of any field does; same_features holds two
+    feature sets index for index."""
     from photo_slam_tpu_torch.tracking import vision
 
     rng = np.random.default_rng(1)
     gray = (rng.random((120, 160)) * 255).astype(np.uint8)
     a = vision.orb_detect_and_compute(gray, 300, torch.device("cpu"))
     digest = cs.orb_digest(a)
-    assert len(digest) == 64
-    perm = rng.permutation(len(a.px))
-    assert cs.orb_digest(a._replace(**{k: v[perm] for k, v in
-                                       a._asdict().items()})) == digest
+    assert len(digest) == 64 and cs.orb_digest(a._replace()) == digest
+    assert cs.same_features(a, a._replace())
+    perm = np.arange(len(a.px))
+    perm[[3, 4]] = perm[[4, 3]]
+    swapped = a._replace(**{k: v[perm] for k, v in a._asdict().items()})
+    assert cs.orb_digest(swapped) != digest
+    assert not cs.same_features(a, swapped)
+    assert cs.keypoint_agreement(a, swapped) == (1.0, 1.0)
     for name in vision.OrbFeatures._fields:
         x = getattr(a, name).copy()
         x.view(np.uint8).reshape(-1)[-1] ^= 1
         assert cs.orb_digest(a._replace(**{name: x})) != digest, name
+        assert not cs.same_features(a, a._replace(**{name: x})), name
+
+
+def test_retain_best_agreement():
+    """The retainBest line's helper passes the shim against its plain twin
+    on every case and counts a case whose output has two indices swapped;
+    the digests cover the order."""
+    from photo_slam_tpu_torch.tracking import vision
+
+    cases = cs.retain_best_cases(vision)
+    assert len(cases) > 100 and {len(r) for r, _ in cases} == set(
+        cs.RETAIN_SIZES) | set(cs.RETAIN_KILLERS)
+    differ, got, want = cs.retain_best_agreement(
+        vision.retain_best, vision.retain_best_plain, cases)
+    assert differ == 0 and got == want and len(got) == 64
+    target = next(i for i, (r, k) in enumerate(cases)
+                  if len(r) == 1000 and 1 < k < len(r))
+
+    def swapped(r, k):
+        out = vision.retain_best_plain(r, k)
+        if r is cases[target][0] and k == cases[target][1]:
+            out[[0, 1]] = out[[1, 0]]
+        return out
+
+    differ, got, want = cs.retain_best_agreement(vision.retain_best,
+                                                 swapped, cases)
+    assert differ == 1 and got != want
 
 
 def test_pnp_fixture_constants_are_opencvs():

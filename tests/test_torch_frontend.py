@@ -17,14 +17,14 @@ With nothing of OpenCV swapped into the port (its own gray, ORB,
 Rodrigues, PnP, SGM, essential matrix, recoverPose and triangulation, each
 equal to OpenCV's), the RGB-D, monocular, distorted, loop-closing and
 stereo-inertial runs and the OrbVoTracker on tests/test_tracking.py's
-frames equal JAX's the same way, OpenCV's features put in the port's order
-on the JAX side (test_parity_with_jax_own_vision,
+frames equal JAX's the same way, the JAX side on its own OpenCV run with
+nothing reordered (test_parity_with_jax_own_vision,
 test_vo_tracker_parity_with_jax_own_vision). With the port's
 own vision.py, the scenarios of tests/test_frontend.py,
 tests/test_loop_closing.py and tests/test_multimap.py hold at their
-thresholds. The port's own ORB equals OpenCV's: with it and OpenCV's
-other functions, the port runs as the JAX frontend does on OpenCV's
-features put in the port's order (test_parity_with_jax_own_orb). The
+thresholds. The port's own ORB equals OpenCV's, in OpenCV's order: with it
+and OpenCV's other functions, the port runs as the JAX frontend does on
+cv2.ORB_create's features (test_parity_with_jax_own_orb). The
 sequences are rendered once per module at 320x240 by splat_render, a numpy
 front-to-back blend of the JAX tests' splat worlds."""
 import numpy as np
@@ -302,23 +302,6 @@ def cv2_vision_own_orb(monkeypatch):
     swap_in_opencv(monkeypatch, orb=False)
 
 
-class PortOrderOrb:
-    """cv2's ORB with its keypoints and their descriptors sorted into the
-    order of the port's orb_detect_and_compute: level by level, raster
-    order within a level. It reorders and changes nothing else."""
-
-    def __init__(self, orb):
-        self.orb = orb
-
-    def detectAndCompute(self, gray, mask):
-        kps, desc = self.orb.detectAndCompute(gray, mask)
-        if desc is None or len(kps) == 0:
-            return kps, desc
-        order = np.lexsort(([k.pt[0] for k in kps], [k.pt[1] for k in kps],
-                            [k.octave for k in kps]))
-        return tuple(kps[i] for i in order), desc[order]
-
-
 # ---------------------------------------------------------------------------
 # Held against the JAX frontend
 # ---------------------------------------------------------------------------
@@ -376,12 +359,10 @@ def run_loop_scenario(fe, frames, async_=False):
     return ops
 
 
-def both_frontends(frames, kw, drive, cam_kw=None, calib=None,
-                   jax_orb=None):
+def both_frontends(frames, kw, drive, cam_kw=None, calib=None):
     """Run the JAX and the port's SlamFrontend (OpenCV's RNG seeded alike)
     through `drive(fe, frames)` -> ([jax ops], [port ops], jax, port).
-    `cam_kw` sets camera fields, `calib` an ImuCalib's fields; `jax_orb`
-    wraps the JAX frontend's cv2 ORB."""
+    `cam_kw` sets camera fields, `calib` an ImuCalib's fields."""
     from photo_slam_tpu.tracking.imu import ImuCalib as JImuCalib
 
     out = []
@@ -394,8 +375,6 @@ def both_frontends(frames, kw, drive, cam_kw=None, calib=None,
             extra = dict(extra, imu_calib=imu_cls(**calib))
         cv2.setRNGSeed(7)
         fe = cls(cam, **kw, **extra)
-        if jax_orb is not None and cls is JFrontend:
-            fe.orb = jax_orb(fe.orb)
         out.append((drive(fe, frames), fe))
     return out[0][0], out[1][0], out[0][1], out[1][1]
 
@@ -460,13 +439,12 @@ def test_parity_with_jax(sensor, rgbd_sequence, mono_sequence, cv2_vision,
 def test_parity_with_jax_own_orb(sensor, rgbd_sequence, mono_sequence,
                                  cv2_vision_own_orb, tmp_path):
     """The port with its own ORB (OpenCV's other functions) against the JAX
-    frontend on OpenCV's features in the port's order: the same run and
-    the same op stream."""
+    frontend on its own cv2.ORB_create, nothing reordered: the same run
+    and the same op stream."""
     _, frames, _ = rgbd_sequence if sensor == "rgbd" else mono_sequence
     kw = dict(sensor=sensor, kf_min_interval=1, kf_tracked_ratio=2.0)
-    jops_, tops, jfe, tfe = both_frontends(frames, kw, drive_all,
-                                           jax_orb=PortOrderOrb)
-    assert isinstance(jfe.orb, PortOrderOrb)
+    jops_, tops, jfe, tfe = both_frontends(frames, kw, drive_all)
+    assert type(jfe.orb).__name__ == "ORB"
     assert vision.orb_detect_and_compute.__module__ == vision.__name__
     assert len(tops) >= 4 and len(tfe.map.keyframes) >= 4
     assert_same_run(jfe, tfe)
@@ -555,12 +533,12 @@ def own_vision_scenario(name, request):
 def test_parity_with_jax_own_vision(name, request, tmp_path):
     """The parity scenarios with nothing of OpenCV in the port: its own
     gray, ORB, Rodrigues, PnP, SGM, essential matrix, recoverPose and
-    triangulation against the JAX frontend on OpenCV's (its ORB's features
-    put in the port's order, PortOrderOrb). The same trajectories within
-    TRAJ_TOL, keyframes, points, loops and op stream."""
+    triangulation against the JAX frontend on its own OpenCV run, nothing
+    reordered. The same trajectories within TRAJ_TOL, keyframes, points,
+    loops and op stream."""
     frames, kw, drive, cam_kw, calib = own_vision_scenario(name, request)
-    jops_, tops, jfe, tfe = both_frontends(frames, kw, drive, cam_kw, calib,
-                                           jax_orb=PortOrderOrb)
+    jops_, tops, jfe, tfe = both_frontends(frames, kw, drive, cam_kw, calib)
+    assert type(jfe.orb).__name__ == "ORB"
     for fn in ("orb_detect_and_compute", "solve_pnp_ransac", "rodrigues",
                "rodrigues_inverse", "find_essential_mat", "recover_pose",
                "triangulate_points"):
@@ -818,8 +796,8 @@ def test_stereo_inertial_tracking(stereo_inertial_sequence):
 
 def test_vo_tracker_parity_with_jax_own_vision():
     """tests/test_tracking.py's sequence through the JAX OrbVoTracker
-    (OpenCV, its ORB's features put in the port's order) and the port's
-    with nothing of OpenCV swapped in: the same inlier counts and poses
+    (OpenCV, its own cv2.ORB_create) and the port's with nothing of
+    OpenCV swapped in: the same inlier counts and poses
     within TRAJ_TOL, frame by frame."""
     import test_tracking
     from photo_slam_tpu.tracking.gt_tracker import Frame as JFrame
@@ -830,7 +808,7 @@ def test_vo_tracker_parity_with_jax_own_vision():
     world = test_tracking.textured_world()
     kw = dict(num_features=1200, min_inliers=15, kf_min_interval=1)
     jvo, vo = JVo(jcam, **kw), OrbVoTracker(make_camera(), device="cpu", **kw)
-    jvo.orb = PortOrderOrb(jvo.orb)
+    assert type(jvo.orb).__name__ == "ORB"
     for i in range(6):
         t = np.array([0.06 * i, 0.02 * i, 0.0])
         img = test_tracking.render_frame(world, t, jcam)

@@ -6,8 +6,8 @@ decoder on TUM's 640x480 frames with neither cv2 nor PIL, the
 both packages, `replica_mono --frontend slam` against the JAX frontend,
 with OpenCV's functions swapped into the port's vision (cv2_vision) and
 with the port's own vision (its ORB, essential matrix, recoverPose,
-triangulation and PnP, each equal to OpenCV's) against JAX's ORB features
-put in the port's order (PortOrderOrb), and what the apps refuse.
+triangulation and PnP, each equal to OpenCV's, its ORB in OpenCV's order
+too) against JAX's own OpenCV run, and what the apps refuse.
 
 Tolerances: the lists, associations, images, depth maps, trajectory files
 and cameras.json exact; GT poses within 1e-12 of SynthReplica's own; the
@@ -36,8 +36,8 @@ from photo_slam_tpu_torch.tools.synth_replica import (SynthReplica,
                                                       tum_camera_flags)
 from photo_slam_tpu_torch.utils.math import se3_inverse, se3_matrix
 from test_torch_blend import one_torch_thread  # noqa: F401
-from test_torch_frontend import (PortOrderOrb, assert_same_run,
-                                 assert_same_stream, cv2_vision)  # noqa: F401
+from test_torch_frontend import (assert_same_run, assert_same_stream,
+                                 cv2_vision)  # noqa: F401
 
 cv2 = pytest.importorskip("cv2")
 
@@ -271,10 +271,10 @@ def run_on_thread(fn):
     return out[0]
 
 
-def replica_mono_against_jax(slam_room, tmp_path, monkeypatch, jax_orb=None):
+def replica_mono_against_jax(slam_room, tmp_path, monkeypatch):
     """The port's `online_slam replica_mono --frontend slam
     --no-async-mapping --device cpu` and the tracker the JAX app builds for
-    it (jonline._make_tracker, its ORB wrapped by jax_orb) on the JAX
+    it (jonline._make_tracker, its own cv2.ORB_create) on the JAX
     loader's frames, held to the same two-view initialization, trajectory
     within TRAJ_TOL, keyframes, map points and MappingOperation stream, the
     app's ATE equal to JAX's ate_rmse on JAX's trajectory."""
@@ -300,8 +300,6 @@ def replica_mono_against_jax(slam_room, tmp_path, monkeypatch, jax_orb=None):
     ds = jdatasets.ReplicaDataset(slam_room, load_depth_maps=False)
     jfe = jonline._make_tracker("slam", ds, JSensorType.MONOCULAR, 10, 800,
                                 async_mapping=False)
-    if jax_orb is not None:
-        jfe.orb = jax_orb(jfe.orb)
     jops = []
     run_on_thread(lambda: jfe.run(ds.frames(), jops.append))
 
@@ -331,15 +329,14 @@ def test_replica_mono_own_vision_matches_jax(slam_room, tmp_path,
                                              monkeypatch):
     """replica_mono --frontend slam with nothing of OpenCV in the port (its
     own gray, ORB, essential matrix, recoverPose, triangulation and PnP)
-    against the JAX app's tracker on OpenCV's, its ORB's features put in
-    the port's order (PortOrderOrb): the same run, op stream and ATE
-    (replica_mono_against_jax)."""
+    against the JAX app's tracker on OpenCV's own run, nothing reordered:
+    the same run, op stream and ATE (replica_mono_against_jax)."""
     from photo_slam_tpu_torch.tracking import vision
 
     for fn in ("rgb_to_gray", "orb_detect_and_compute", "find_essential_mat",
                "recover_pose", "triangulate_points", "solve_pnp_ransac"):
         assert getattr(vision, fn).__module__ == vision.__name__, fn
-    replica_mono_against_jax(slam_room, tmp_path, monkeypatch, PortOrderOrb)
+    replica_mono_against_jax(slam_room, tmp_path, monkeypatch)
 
 
 def mono_trackers(root, async_port=False):
@@ -369,7 +366,7 @@ def mono_trackers(root, async_port=False):
 def test_replica_mono_own_vision_tracks_the_pan(slam_room):
     """The port's own vision (ORB in torch, OpenCV's five-point RANSAC, its
     PnP) initializes on the pan and tracks every later frame, as JAX's
-    OpenCV does on the same frames (each on its own ORB order). Their ATEs
+    OpenCV does on the same frames. Their ATEs
     are not compared here: both miss 5 cm on the full pan (ROADMAP Queue
     3; `python tests/test_torch_mono_tum.py` prints them)."""
     for name, (fe, gt) in mono_trackers(slam_room).items():

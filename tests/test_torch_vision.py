@@ -25,10 +25,12 @@ scene the pose is also held to the truth (1e-6). ORB equal to
 cv2.ORB_create(n).detectAndCompute at 320x240, 600x340, 640x480, 752x480
 and 1200x680 on three images for n = 500, 1000, 2000: the same keypoints
 (level and float32 point), equal float32 responses and angles, bit-equal
-descriptors; its pieces bit for bit against OpenCV's (the learned test
-pairs, fastAtan2, the level blur against cv2.sepFilter2D, the steering on
-angles where cosf would round otherwise, a Harris tie at a level's
-budget)."""
+descriptors, row for row in OpenCV's order (retain_best, the shim that
+gives it, index for index against its plain twin retain_best_plain on
+heavily tied responses and past the selection's depth limit); its pieces
+bit for bit against OpenCV's (the learned test pairs, fastAtan2, the level
+blur against cv2.sepFilter2D, the steering on angles where cosf would
+round otherwise, a Harris tie at a level's budget)."""
 import ctypes
 import ctypes.util
 import hashlib
@@ -40,6 +42,7 @@ import torch
 from hypothesis import given, settings
 from hypothesis import strategies as st
 
+import chip_smoke
 from photo_slam_tpu_torch.tools import synth_replica
 from photo_slam_tpu_torch.tracking import vision
 from test_torch_blend import one_torch_thread  # noqa: F401
@@ -742,16 +745,9 @@ def opencv_orb(gray, n):
         np.array([k.octave for k in kps], np.int32))
 
 
-def by_position(f):
-    """f's rows sorted by (level, y, x)."""
-    order = np.lexsort((f.px[:, 0], f.px[:, 1], f.level))
-    return vision.OrbFeatures(*(x[order] for x in f))
-
-
 def assert_same_features(got, want):
-    """Equal keypoint sets, responses, angles and descriptors, bit for
-    bit, after sorting both by (level, y, x)."""
-    got, want = by_position(got), by_position(want)
+    """Equal keypoints, responses, angles and descriptors, bit for bit and
+    row for row in the order returned."""
     for name in vision.OrbFeatures._fields:
         x, y = getattr(got, name), getattr(want, name)
         assert x.dtype == y.dtype and x.shape == y.shape, name
@@ -918,13 +914,97 @@ def test_orb_bit_equal_to_opencv(size, kind, n, rendered_gray):
     assert_same_features(got, want)
 
 
+@pytest.mark.parametrize("kind", chip_smoke.RETAIN_KINDS)
+@pytest.mark.parametrize("n", chip_smoke.RETAIN_SIZES)
+def test_retain_best_matches_libstdcpp(n, kind):
+    """The shim (csrc_host/retain_best.cpp, libstdc++'s nth_element and
+    partition) against retain_best_plain, index for index, for each k of
+    chip_smoke's retainBest cases; both keep the k best and the ties with
+    the k-th, and nothing else."""
+    r, ks = chip_smoke.retain_case(n, kind)
+    for k in ks:
+        got = vision.retain_best(r, k)
+        want = vision.retain_best_plain(r, k)
+        assert got.dtype == want.dtype == np.int64
+        np.testing.assert_array_equal(got, want, err_msg=f"k={k}")
+        if k >= n:
+            np.testing.assert_array_equal(got, np.arange(n))
+        elif k == 0:
+            assert len(got) == 0
+        else:
+            kth = np.sort(r)[::-1][k - 1]
+            assert sorted(got.tolist()) == np.nonzero(r >= kth)[0].tolist()
+            assert (r[got[:k - 1]] >= r[got[k - 1]]).all()
+
+
+@pytest.mark.parametrize("n", chip_smoke.RETAIN_KILLERS)
+def test_retain_best_past_the_depth_limit(n):
+    """On chip_smoke's depth killers nth_element runs out of depth and
+    takes the heap select, the same way again on the frozen values, and
+    the shim keeps what retain_best_plain keeps, index for index."""
+    for k in (1, 5, n // 4, n // 2):
+        r, ran_out = chip_smoke.depth_killer(vision, n, k - 1)
+        values = r.tolist()
+        assert ran_out and vision.nth_element_plain(
+            list(range(n)), k - 1, lambda x, y: values[x] > values[y])
+        np.testing.assert_array_equal(vision.retain_best(r, k),
+                                      vision.retain_best_plain(r, k),
+                                      err_msg=f"k={k}")
+
+
+def test_retain_best_build_failure_raises(tmp_path, monkeypatch):
+    """A shim that does not build raises with g++'s output, from
+    retain_best and from ORB: there is no fallback to the plain twin or
+    to another order."""
+    from photo_slam_tpu_torch import native
+
+    src = tmp_path / "retain_best.cpp"
+    src.write_text("this is not C++\n")
+    monkeypatch.setitem(native.SOURCES, "retain_best", src)
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path / "build")
+    native._lib.cache_clear()
+    try:
+        with pytest.raises(RuntimeError, match="native build failed"):
+            vision.retain_best(np.ones(4, np.float32), 2)
+        with pytest.raises(RuntimeError, match="retain_best.cpp"):
+            vision.orb_detect_and_compute(
+                orb_image("noise", (320, 240), None), 500, "cpu")
+    finally:
+        native._lib.cache_clear()
+    assert not list((tmp_path / "build").glob("*.so"))
+
+
+def test_retain_best_order_is_opencvs():
+    """On a level's FAST corners in raster order, retain_best's order is
+    the one cv2.ORB_create returns: the photograph's level 0 at 1000
+    features, cut to 2n by FAST score and to n by Harris response, gives
+    OpenCV's level-0 keypoints index for index; a sort by response would
+    not."""
+    rgb = cv2.cvtColor(cv2.imread(PHOTO), cv2.COLOR_BGR2RGB)
+    gray = vision.rgb_to_gray(rgb)
+    n = vision.level_budget(1000)[0]
+    im = torch.from_numpy(gray.astype(np.int32))
+    e = vision.EDGE_THRESHOLD
+    score = vision.fast_scores(im)
+    inner = torch.zeros_like(score)
+    inner[e:-e, e:-e] = score[e:-e, e:-e]
+    ys, xs = torch.nonzero(inner, as_tuple=True)
+    keep = torch.from_numpy(vision.retain_best(inner[ys, xs].numpy(), 2 * n))
+    ys, xs = ys[keep], xs[keep]
+    resp = vision.harris_response(*vision.harris_sums(im, ys, xs)).numpy()
+    keep = vision.retain_best(resp, n)
+    got = np.stack([xs.numpy()[keep], ys.numpy()[keep]], 1)
+    want = opencv_orb(gray, 1000)
+    np.testing.assert_array_equal(got, want.px[want.level == 0])
+    by_resp = np.argsort(-resp[keep], kind="stable")
+    assert not np.array_equal(got[by_resp], got)
+
+
 def test_orb_fixture_digest_is_opencvs():
     """chip_smoke.py holds the card's ORB of the photograph against this
     constant on the card's machine (no OpenCV there): OpenCV's features of
     the same grey image hash to it, and so do the port's on the CPU."""
     from photo_slam_tpu_torch.io import images
-
-    import chip_smoke
 
     rgb = images.read_png(PHOTO)[..., :3]
     np.testing.assert_array_equal(rgb, cv2.cvtColor(cv2.imread(PHOTO),
@@ -939,14 +1019,18 @@ def test_orb_fixture_digest_is_opencvs():
 
 def test_orb_matches_opencv(rendered_gray):
     """The rendered 320x240 frame at 1000 features: OpenCV's keypoints,
-    responses, angles and descriptors exactly; within a level the port's
-    rows come in raster order."""
+    responses, angles and descriptors exactly, index for index in
+    OpenCV's order: level by level, and within a level the order that
+    retainBest leaves, which is not raster order."""
     f = vision.orb_detect_and_compute(rendered_gray, 1000, "cpu")
     assert len(f.px) > 300 and f.desc.shape == (len(f.px), 32)
     assert f.desc.dtype == np.uint8 and f.px.dtype == np.float32
-    assert_same_features(f, opencv_orb(rendered_gray, 1000))
+    want = opencv_orb(rendered_gray, 1000)
+    assert_same_features(f, want)
+    np.testing.assert_array_equal(f.px, want.px)
+    assert (np.diff(f.level) >= 0).all()
     key = f.level.astype(np.float64) * 1e7 + f.px[:, 1] * 1e3 + f.px[:, 0]
-    assert (np.diff(key) > 0).all()
+    assert not (np.diff(key) > 0).all()
     assert (np.bincount(f.level, minlength=8)
             <= np.array(vision.level_budget(1000)) + 5).all()
     # Level-0 keypoints lie on whole pixels, at least 31 from the edge.
