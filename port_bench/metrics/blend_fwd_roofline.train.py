@@ -1,0 +1,9 @@
+"""K1's share of its roofline, in %: the least time of the blend
+forward per iteration (port_bench/roofline.py, from the reference's binning
+of the cell's views) over the device time per iteration of the kernel
+blend_fwd_kernel."""
+from port_bench.readers import kernel_roofline
+
+
+def read(layer):
+    return kernel_roofline(layer, "blend_fwd_kernel", "k1_s")
