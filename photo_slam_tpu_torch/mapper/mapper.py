@@ -33,6 +33,7 @@ correction ops' map transforms replay from the trainer's StepGraphs
 from __future__ import annotations
 
 import contextlib
+import itertools
 import json
 import time
 from enum import Enum
@@ -58,7 +59,7 @@ from photo_slam_tpu_torch.ops.render import (RenderSettings, principal_for,
 from photo_slam_tpu_torch.utils.math import (quat_to_rotmat,
                                              rotmat_to_quat_numpy,
                                              se3_inverse, se3_matrix)
-from photo_slam_tpu_torch.utils.profiling import Profiler
+from photo_slam_tpu_torch.utils.profiling import DISABLED, Profiler
 
 
 class SensorType(Enum):
@@ -91,6 +92,8 @@ class GaussianMapper:
         # viewer copies its images to the host on a stream of its own.
         self.render_lock = self.trainer.state_lock
         self.profiler = self.trainer.profiler
+        # render_from_pose's frames, the identifier of their spans.
+        self._frames = itertools.count(1)
         self._stream = self._copy_stream = None
         if self.device.type == "cuda":
             self._stream = torch.cuda.current_stream(self.device)
@@ -480,70 +483,88 @@ class GaussianMapper:
         the wait for the device and the copy to the host come after the
         lock is released (stream order keeps the render ahead of the
         mapper's later writes). `profiler` times the stages as spans:
-        viewer.lock_wait, viewer.render (enqueue to the device's finish)
-        and viewer.d2h."""
-        prof = profiler or Profiler(enabled=False)
+        viewer.request (the whole call; its identifier is the mapper's
+        frame count) and inside it viewer.camera (the pose, the ladder,
+        the camera matrices), viewer.lock_wait, viewer.render (the
+        enqueue to the device's finish: viewer.activate, the map's
+        activation; viewer.enqueue, the replay's; viewer.wait, the wait
+        for the device), viewer.d2h (the copy to the host) and, for a
+        distorted camera, viewer.mask. Without one the spans reach only a
+        torch.profiler trace (utils/profiling.py)."""
+        prof = profiler or DISABLED
         cam = self.scene.cameras[camera_id]
-        q = np.asarray(quat_wxyz, np.float64)
-        R = quat_to_rotmat(torch.tensor(q / np.linalg.norm(q),
-                                        dtype=torch.float32)).numpy()
-        lw, lh = self.RENDER_LADDER_W, self.RENDER_LADDER_H
-        w2 = max(lw, -(-width // lw) * lw)
-        h2 = max(lh, -(-height // lh) * lh)
-        # Same focal length, extended FoV for the padded size.
-        tanx2 = float(np.tan(cam.fovx / 2)) * w2 / width
-        tany2 = float(np.tan(cam.fovy / 2)) * h2 / height
-        k_dup, per_tile = self.cfg.renderer.caps_for_mode("pallas")
-        # Off-center principal points ride through the ladder exactly: the
-        # padded render keeps the camera's (cx, cy) shifted by the integer
-        # crop offset.
-        x0 = (w2 - width) // 2
-        y0 = (h2 - height) // 2
-        pp = principal_for(cam, width, height)
         on_stream = (torch.cuda.stream(self._stream) if self._stream
                      is not None else contextlib.nullcontext())
-        with on_stream, torch.no_grad():
-            mats = build_camera_matrices(R, np.asarray(trans, np.float64),
-                                         self.cfg.mapper.z_near,
-                                         self.cfg.mapper.z_far,
-                                         2.0 * float(np.arctan(tanx2)),
-                                         2.0 * float(np.arctan(tany2)),
-                                         device=self.device)
-            with prof.locked("viewer.lock_wait", self.render_lock):
-                t0 = time.perf_counter()
-                settings = RenderSettings(
-                    width=w2, height=h2, tan_fovx=tanx2, tan_fovy=tany2,
-                    sh_degree=self.trainer.default_sh,
-                    max_tiles_per_gaussian=k_dup, max_per_tile=per_tile,
-                    principal=(None if pp is None
-                               else (pp[0] + x0, pp[1] + y0)),
-                    mode="pallas")
-                state = self.trainer.state
-                scales, quats, opac = gm.activated(state.params)
-                res = render_jit(state.params.xyz, scales, quats, opac,
-                                 mats, settings, self.trainer.bg_color,
-                                 shs=gm.sh_features(state.params),
-                                 live_mask=state.live)
-                img = res.image[:, y0:y0 + height, x0:x0 + width]
-                done = None
-                if self._stream is not None:
-                    done = torch.cuda.Event()
-                    done.record(self._stream)
-        if done is not None:
-            done.synchronize()
-        prof.record("viewer.render", time.perf_counter() - t0)
-        with prof.span("viewer.d2h"), (
-                torch.cuda.stream(self._copy_stream) if self._copy_stream
-                is not None else contextlib.nullcontext()):
-            img = img.cpu().numpy()
-        # Mask out invalid undistortion border pixels, like the reference's
-        # viewer path (src/gaussian_mapper.cpp:1563-1568).
-        if cam.has_distortion:
-            mask = cam.undistort_mask()
-            if mask.shape != (height, width):
-                mask = (resize_image(mask, height, width)
-                        > 0.5).astype(np.float32)
-            img = img * mask[None]
+        with prof.span("viewer.request", ident=next(self._frames)), \
+                on_stream, torch.no_grad():
+            with prof.span("viewer.camera"):
+                q = np.asarray(quat_wxyz, np.float64)
+                R = quat_to_rotmat(torch.tensor(q / np.linalg.norm(q),
+                                                dtype=torch.float32)).numpy()
+                lw, lh = self.RENDER_LADDER_W, self.RENDER_LADDER_H
+                w2 = max(lw, -(-width // lw) * lw)
+                h2 = max(lh, -(-height // lh) * lh)
+                # Same focal length, extended FoV for the padded size.
+                tanx2 = float(np.tan(cam.fovx / 2)) * w2 / width
+                tany2 = float(np.tan(cam.fovy / 2)) * h2 / height
+                # Off-center principal points ride through the ladder
+                # exactly: the padded render keeps the camera's (cx, cy)
+                # shifted by the integer crop offset.
+                x0 = (w2 - width) // 2
+                y0 = (h2 - height) // 2
+                pp = principal_for(cam, width, height)
+                mats = build_camera_matrices(
+                    R, np.asarray(trans, np.float64), self.cfg.mapper.z_near,
+                    self.cfg.mapper.z_far, 2.0 * float(np.arctan(tanx2)),
+                    2.0 * float(np.arctan(tany2)), device=self.device)
+            with prof.span("viewer.lock_wait"):
+                self.render_lock.acquire()
+            # The lock is released inside viewer.render, before the wait.
+            with prof.span("viewer.render"):
+                try:
+                    with prof.span("viewer.activate"):
+                        state = self.trainer.state
+                        scales, quats, opac = gm.activated(state.params)
+                        shs = gm.sh_features(state.params)
+                    with prof.span("viewer.enqueue"):
+                        k_dup, per_tile = self.cfg.renderer.caps_for_mode(
+                            "pallas")
+                        settings = RenderSettings(
+                            width=w2, height=h2, tan_fovx=tanx2,
+                            tan_fovy=tany2,
+                            sh_degree=self.trainer.default_sh,
+                            max_tiles_per_gaussian=k_dup,
+                            max_per_tile=per_tile,
+                            principal=(None if pp is None
+                                       else (pp[0] + x0, pp[1] + y0)),
+                            mode="pallas")
+                        res = render_jit(state.params.xyz, scales, quats,
+                                         opac, mats, settings,
+                                         self.trainer.bg_color, shs=shs,
+                                         live_mask=state.live)
+                        img = res.image[:, y0:y0 + height, x0:x0 + width]
+                        done = None
+                        if self._stream is not None:
+                            done = torch.cuda.Event()
+                            done.record(self._stream)
+                finally:
+                    self.render_lock.release()
+                with prof.span("viewer.wait"):
+                    if done is not None:
+                        done.synchronize()
+            with prof.span("viewer.d2h"), (
+                    torch.cuda.stream(self._copy_stream) if self._copy_stream
+                    is not None else contextlib.nullcontext()):
+                img = img.cpu().numpy()
+            # Mask out invalid undistortion border pixels, like the
+            # reference's viewer path (src/gaussian_mapper.cpp:1563-1568).
+            if cam.has_distortion:
+                with prof.span("viewer.mask"):
+                    mask = cam.undistort_mask()
+                    if mask.shape != (height, width):
+                        mask = (resize_image(mask, height, width)
+                                > 0.5).astype(np.float32)
+                    img = img * mask[None]
         return img
 
     def render_and_record_all_keyframes(self, out_dir,

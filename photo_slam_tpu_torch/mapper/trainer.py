@@ -696,6 +696,16 @@ class GaussianTrainer:
     from `seed` when not given) draws the split samples of densification.
     `state_lock` (reentrant) is held around every write of the map; the
     wait for it is the profiler's span "mapper.lock_wait".
+
+    `profiler` times each iteration's stages as spans: "mapper.iteration"
+    (the whole call; its identifier is the iteration) and inside it
+    "mapper.sample" (the keyframe and pyramid level), "mapper.gt" (the
+    ground truth on the device; a cache miss counts "mapper.gt_uploads"
+    and its bytes "mapper.gt_upload_bytes"), "mapper.enqueue" (the step's
+    replay enqueued, "mapper.lock_wait" inside), "mapper.events" (densify
+    and the opacity reset where due: "mapper.densify",
+    "mapper.opacity_reset") and "mapper.fetch" (the metrics read back;
+    each read counts "mapper.host_syncs").
     """
 
     def __init__(self, cfg: Config, scene: Scene, seed: int = 0, *, device,
@@ -738,6 +748,8 @@ class GaussianTrainer:
             return hit
         arr = torch.from_numpy(np.ascontiguousarray(
             kf.level_image(level), np.float32)).to(self.device)
+        self.profiler.count("mapper.gt_uploads")
+        self.profiler.count("mapper.gt_upload_bytes", arr.nbytes)
         self._gt_cache[key] = arr
         self._gt_cache_bytes += arr.nbytes
         while self._gt_cache_bytes > self.gt_cache_budget and len(
@@ -900,7 +912,7 @@ class GaussianTrainer:
             return
         if it > o.densify_from_iter and it % o.densification_interval == 0:
             size_threshold = 20 if it > o.prune_big_point_after_iter else 0
-            with self._writing():
+            with self.profiler.span("mapper.densify"), self._writing():
                 self._ensure_capacity()
                 # The split draws, from the trainer's generator, straight
                 # into the buffer the densify graph reads.
@@ -922,7 +934,8 @@ class GaussianTrainer:
             or (self.cfg.model.white_background
                 and it == o.densify_from_iter)
         ):
-            with self._writing():
+            with self.profiler.span("mapper.opacity_reset"), \
+                    self._writing():
                 self.state, self.opt_state = self.graphs.opacity_reset_step(
                     self.state, self.opt_state)
 
@@ -935,6 +948,8 @@ class GaussianTrainer:
         if "psnr" in metrics:
             self.metrics.last_psnr = float(metrics["psnr"])
         self.metrics.num_live = int(gm.num_live(self.state))
+        # The loss, the PSNR and the live count: a read each.
+        self.profiler.count("mapper.host_syncs", 2 + ("psnr" in metrics))
 
     def train_iteration(self, kf: Optional[Keyframe] = None,
                         fetch_metrics: bool = True,
@@ -944,31 +959,42 @@ class GaussianTrainer:
 
         With fetch_metrics=False nothing is read back to the host, except on
         densify iterations (the live count and the dropped candidates);
-        the host-side metric fields keep their last fetched values."""
-        if kf is None:
-            kf = self.sampler.sample_sliding_window(self.scene.keyframes)
-        if kf is None:
-            return {}
-        it = self._start_iteration()
+        the host-side metric fields keep their last fetched values. The
+        stages are the profiler's spans (the class docstring)."""
+        prof = self.profiler
+        with prof.span("mapper.iteration", ident=self.iteration + 1):
+            with prof.span("mapper.sample"):
+                if kf is None:
+                    kf = self.sampler.sample_sliding_window(
+                        self.scene.keyframes)
+                # Pyramid level selection (reference: 631-647).
+                if kf is not None:
+                    level = kf.current_pyramid_level() if (
+                        self.cfg.mapper.do_gaus_pyramid_training
+                        and kf.pyramid) else len(kf.pyramid)
+            if kf is None:
+                return {}
+            it = self._start_iteration()
+            with prof.span("mapper.gt"):
+                gt = self._device_gt(kf, level)
+                height, width = gt.shape[1], gt.shape[2]
+                mask = self._device_mask(kf, height)
 
-        # Pyramid level selection (reference: 631-647).
-        level = kf.current_pyramid_level() if (
-            self.cfg.mapper.do_gaus_pyramid_training and kf.pyramid
-        ) else len(kf.pyramid)
-        gt = self._device_gt(kf, level)
-        height, width = gt.shape[1], gt.shape[2]
-        mask = self._device_mask(kf, height)
+            with prof.span("mapper.enqueue"):
+                self.state, self.opt_state, metrics = self.graphs.train_step(
+                    self.state, self.opt_state, kf.matrices, gt, mask,
+                    self._current_lrs(kf), self.bg_color,
+                    self.cfg.opt.lambda_dssim,
+                    self._settings(kf.camera, width, height),
+                    lock=self._writing())
 
-        self.state, self.opt_state, metrics = self.graphs.train_step(
-            self.state, self.opt_state, kf.matrices, gt, mask,
-            self._current_lrs(kf), self.bg_color, self.cfg.opt.lambda_dssim,
-            self._settings(kf.camera, width, height), lock=self._writing())
-
-        self._scheduled_events(it, allow_opacity_reset)
-        self.metrics.iteration = it
-        if fetch_metrics:
-            self._fetch(metrics)
-        return dict(metrics)
+            with prof.span("mapper.events"):
+                self._scheduled_events(it, allow_opacity_reset)
+            self.metrics.iteration = it
+            if fetch_metrics:
+                with prof.span("mapper.fetch"):
+                    self._fetch(metrics)
+            return dict(metrics)
 
     def train_iteration_batched(self, kfs: list[Keyframe],
                                 fetch_metrics: bool = True,
@@ -980,28 +1006,39 @@ class GaussianTrainer:
         other, one shared Adam update), then the single-view iteration's
         schedule: SH warm-up, densify / prune and the opacity reset.
         Capability beyond the reference's strictly sequential per-view
-        iterations (photo_slam_tpu/mapper/trainer.py:448-536)."""
+        iterations (photo_slam_tpu/mapper/trainer.py:448-536). The stages
+        are train_iteration's spans ("mapper.sample": the views' cameras
+        stacked)."""
         if not kfs:
             return {}
-        it = self._start_iteration()
-        cam0 = kfs[0].camera
-        cams = CameraMatrices(*(torch.stack(x) for x in
-                                zip(*(k.matrices for k in kfs))))
-        gts = torch.stack([self._device_gt(k, len(k.pyramid)) for k in kfs])
-        masks = torch.stack([self._device_mask(k, k.camera.height)
-                             for k in kfs])
-        self.state, self.opt_state, metrics = self.graphs.train_step_batched(
-            self.state, self.opt_state, cams, gts, masks,
-            self._current_lrs(kfs[0]), self.bg_color,
-            self.cfg.opt.lambda_dssim,
-            self._settings(cam0, cam0.width, cam0.height),
-            lock=self._writing())
+        prof = self.profiler
+        with prof.span("mapper.iteration", ident=self.iteration + 1):
+            it = self._start_iteration()
+            cam0 = kfs[0].camera
+            with prof.span("mapper.sample"):
+                cams = CameraMatrices(*(torch.stack(x) for x in
+                                        zip(*(k.matrices for k in kfs))))
+            with prof.span("mapper.gt"):
+                gts = torch.stack([self._device_gt(k, len(k.pyramid))
+                                   for k in kfs])
+                masks = torch.stack([self._device_mask(k, k.camera.height)
+                                     for k in kfs])
+            with prof.span("mapper.enqueue"):
+                self.state, self.opt_state, metrics = \
+                    self.graphs.train_step_batched(
+                        self.state, self.opt_state, cams, gts, masks,
+                        self._current_lrs(kfs[0]), self.bg_color,
+                        self.cfg.opt.lambda_dssim,
+                        self._settings(cam0, cam0.width, cam0.height),
+                        lock=self._writing())
 
-        self._scheduled_events(it, allow_opacity_reset)
-        self.metrics.iteration = it
-        if fetch_metrics:
-            self._fetch(metrics)
-        return dict(metrics)
+            with prof.span("mapper.events"):
+                self._scheduled_events(it, allow_opacity_reset)
+            self.metrics.iteration = it
+            if fetch_metrics:
+                with prof.span("mapper.fetch"):
+                    self._fetch(metrics)
+            return dict(metrics)
 
     # -- offline loop --------------------------------------------------------
 

@@ -35,6 +35,13 @@ function directly: the port's plain route, which the CPU tests run.
 `tracing()` says whether the calling thread is inside a warm-up or a
 capture, so a test can tell the calls a graph records from op-by-op ones.
 
+While a torch.profiler session records, a capture is the span
+`graphs.capture` and the counters of the traced record
+(utils/profiling.py::traced) count `graphs.captures`, `graphs.replays`,
+and the bytes a replay copies into the input buffers
+(`graphs.copy_bytes`) and clones out of the outputs
+(`graphs.clone_bytes`).
+
 What runs through a GraphCache: ops/render.py::render_jit (the serving
 renders) and mapper/trainer.py::StepGraphs, which holds one map resident
 and replays on it train_step, train_chunk, the B-view step, densify and
@@ -57,6 +64,9 @@ from collections import OrderedDict
 from typing import Callable, Hashable, Optional, Sequence
 
 import torch
+
+from photo_slam_tpu_torch.utils.profiling import DISABLED as _prof
+from photo_slam_tpu_torch.utils.profiling import recording
 
 GRAPH_CACHE_SIZE = 64
 
@@ -98,6 +108,10 @@ def add_launches(tally: dict, replays: int = 1) -> None:
 def is_capturing(device: torch.device) -> bool:
     """Whether the current stream of `device` is being captured."""
     return device.type == "cuda" and torch.cuda.is_current_stream_capturing()
+
+
+def _nbytes(tensors) -> int:
+    return sum(x.numel() * x.element_size() for x in tensors)
 
 
 def spec(x: torch.Tensor) -> tuple:
@@ -236,6 +250,12 @@ class GraphCache:
                 entry.graph.replay()
             entry.replays += replays
             self.replays += replays
+            _prof.count("graphs.replays", replays)
+            if recording():
+                _prof.count("graphs.copy_bytes", _nbytes(
+                    x for buf, x in zip(entry.fresh, fresh) if x is not buf))
+                if clone:
+                    _prof.count("graphs.clone_bytes", _nbytes(entry.outputs))
             add_launches(entry.launches, replays)
             out = tuple(o.clone() for o in entry.outputs) if clone \
                 else entry.outputs
@@ -252,7 +272,9 @@ class GraphCache:
         stream.wait_stream(torch.cuda.current_stream(dev))
         _tracing.depth = getattr(_tracing, "depth", 0) + 1
         try:
-            return self._warm_and_capture(fn, fresh, resident, dev, stream)
+            with _prof.span("graphs.capture"):
+                return self._warm_and_capture(fn, fresh, resident, dev,
+                                              stream)
         finally:
             _tracing.depth -= 1
 
@@ -291,5 +313,6 @@ class GraphCache:
         finally:
             del _capturing[handle]
         self.captures += 1
+        _prof.count("graphs.captures")
         torch.cuda.current_stream(dev).wait_stream(stream)
         return Graphed(graph, tuple(static), outputs, tally)

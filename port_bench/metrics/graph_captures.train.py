@@ -1,0 +1,8 @@
+"""CUDA graphs the program captured in the traced window of the training
+cells (its counter `graphs.captures`): a step graph built again, where
+set-up captured every one (expected 0)."""
+from port_bench.program_spans import counter
+
+
+def read(layer):
+    return counter("graphs.captures")
